@@ -1,0 +1,81 @@
+"""Build and load the hand-written CUDA kernels.
+
+The kernels (``pywindow_torch/csrc/*.cu``) include no PyTorch header;
+``csrc/bindings.cpp`` is the one small source that does, and it binds
+them with a launch check after every launch.  The extension is built
+with ``torch.utils.cpp_extension.load`` for ``sm_90a`` on first use,
+never at import, into ``<checkout>/build/pywindow_torch/`` (listed in
+``.gitignore``); ``load`` rebuilds when a source changes.
+
+:data:`LAUNCHES` counts kernel launches by kernel name: each wrapper
+adds one where it launches its kernel and nowhere else, so a caller can
+show that a run went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import pathlib
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "pywindow_torch"
+SOURCES = ("bindings.cpp", "ray_exit.cu", "path_sweep.cu", "dbscan.cu")
+#: -fmad=false: no multiply-add contraction, so each kernel rounds
+#: exactly like its plain PyTorch version (which runs one op at a time).
+CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false")
+
+#: kernel launches by kernel name (see the module docstring).
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+@functools.cache
+def load_extension():
+    """Build the kernels if needed and load them (once per process)."""
+    from torch.utils.cpp_extension import load
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return load(
+        name="pywindow_torch_kernels",
+        sources=[str(CSRC / s) for s in SOURCES],
+        build_directory=str(BUILD_DIR),
+        extra_cflags=["-O3"],
+        extra_cuda_cflags=list(CUDA_FLAGS),
+        verbose=False,
+    )
+
+
+_DTYPES = (torch.float32, torch.float64)
+
+
+def device_type(name: str, t: torch.Tensor) -> str:
+    """The device type, "cpu" or "cuda", of the tensor a kernel entry
+    point was given: it runs the plain version or the kernel by it."""
+    if t.device.type not in ("cpu", "cuda"):
+        msg = f"{name}: unsupported device {t.device}"
+        raise ValueError(msg)
+    return t.device.type
+
+
+def check_inputs(
+    name: str, dtype: torch.dtype, **tensors: torch.Tensor
+) -> torch.device:
+    """Validate that every tensor is contiguous and on one CUDA device,
+    and that float operands have ``dtype``; return the device."""
+    if dtype not in _DTYPES:
+        msg = f"{name}: dtype {dtype} not supported (float32 or float64)"
+        raise TypeError(msg)
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        msg = f"{name}: all tensors must be on one CUDA device, got {devices}"
+        raise ValueError(msg)
+    for key, t in tensors.items():
+        if not t.is_contiguous():
+            msg = f"{name}: {key} must be contiguous"
+            raise ValueError(msg)
+        if t.is_floating_point() and t.dtype != dtype:
+            msg = f"{name}: {key} has dtype {t.dtype}, expected {dtype}"
+            raise TypeError(msg)
+    return next(iter(devices))

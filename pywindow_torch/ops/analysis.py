@@ -1,0 +1,356 @@
+"""Full single-molecule analysis: the pipeline behind
+``Molecule.full_analysis`` (counterpart of ``pywindow_tpu.ops.analysis``;
+reference: molecular.py:156-202).
+
+``full_analysis_device`` computes every property on the molecule's
+device; :func:`analyze` derives the static sampling sizes on the host,
+fetches the packed result in one transfer, re-runs with escalated caps
+or budgets where the device flags it, and converts the result into the
+reference's properties-dict schema.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pywindow_torch import tables
+from pywindow_torch.config import (
+    DEFAULT_CONFIG,
+    MAX_WINDOWS_CEILING,
+    OPT_DTYPE,
+    AnalysisConfig,
+    effective_budgets,
+    pore_opt_mode,
+)
+from pywindow_torch.ops import rays
+from pywindow_torch.ops.encoding import MolArrays, encode
+from pywindow_torch.ops.geometry import (
+    center_of_mass,
+    clearance_field,
+    max_dim,
+    max_dim_value,
+    molecular_weight,
+    pore_diameter,
+    pore_stable_probe,
+    shift_to,
+    sphere_volume,
+)
+from pywindow_torch.ops.lbfgsb import lbfgsb_minimize, lbfgsb_minimize_stable
+from pywindow_torch.ops.windows import WindowsResult, find_windows
+from pywindow_torch.profiling import METRICS, stage
+
+logger = logging.getLogger("pywindow_torch")
+
+
+class FullAnalysis(NamedTuple):
+    """Everything ``full_analysis`` computes."""
+
+    molecular_weight: torch.Tensor
+    centre_of_mass: torch.Tensor  # (3,)
+    maxd_atom_1: torch.Tensor
+    maxd_atom_2: torch.Tensor
+    maximum_diameter: torch.Tensor
+    average_diameter: torch.Tensor
+    pore_diameter: torch.Tensor
+    pore_atom: torch.Tensor
+    pore_volume: torch.Tensor
+    pore_opt_diameter: torch.Tensor
+    pore_opt_atom: torch.Tensor
+    pore_opt_centre: torch.Tensor  # (3,)
+    pore_opt_volume: torch.Tensor
+    windows: WindowsResult
+
+
+def optimise_pore_centre_res(
+    mol: MolArrays, cfg: AnalysisConfig = DEFAULT_CONFIG
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The optimised pore centre (L-BFGS-B from the COM within a
+    ±pore_r box; reference: utilities.py:400-426) and the flag that the
+    (possibly fast) iteration budget stopped it.
+
+    Runs in :data:`~pywindow_torch.config.OPT_DTYPE`: the stable driver
+    for a float32 pipeline, the plain one for float64 (see
+    :func:`~pywindow_torch.config.pore_opt_mode`).
+    """
+    opt_maxiter, _ = effective_budgets(cfg)
+    stable = pore_opt_mode(mol.coords.dtype) == "stable"
+    omol = mol.to(OPT_DTYPE)
+    com = center_of_mass(omol)
+    pd0, _ = pore_diameter(omol, com=com)
+    pore_r = pd0 / 2.0
+    x0, lower, upper = com[None], (com - pore_r)[None], (com + pore_r)[None]
+    if stable:
+
+        def f_abs(x):
+            return -2.0 * clearance_field(x[:, None, :], omol)[:, 0]
+
+        opt = lbfgsb_minimize_stable(
+            pore_stable_probe(omol), f_abs, x0, lower, upper,
+            maxiter=opt_maxiter,
+        )
+    else:
+
+        def f_neg(points):
+            return -2.0 * clearance_field(points, omol)
+
+        opt = lbfgsb_minimize(f_neg, x0, lower, upper, maxiter=opt_maxiter)
+    return opt.x[0].to(mol.coords.dtype), opt.capped[0]
+
+
+def full_analysis_device(
+    mol: MolArrays,
+    n_points_windows: int,
+    n_points_avg: int,
+    l1: int,
+    l2: int,
+    cfg: AnalysisConfig,
+) -> FullAnalysis:
+    """Every per-molecule property, computed on ``mol``'s device."""
+    mw = molecular_weight(mol)
+    com = center_of_mass(mol)
+    a1, a2, maxd = max_dim(mol)
+
+    # average diameter on the COM-centred molecule, sampling radius =
+    # the full max diameter (utilities.py:1586-1650)
+    centred = shift_to(mol, torch.zeros_like(com))
+    avg = rays.average_diameter(centred, n_points_avg, max_dim_value(centred))
+
+    pd, pd_atom = pore_diameter(mol, com=com)
+    pv = sphere_volume(pd / 2.0)
+    pod_centre, pore_capped = optimise_pore_centre_res(mol, cfg)
+    pod, pod_atom = pore_diameter(mol, com=pod_centre)
+    pov = sphere_volume(pod / 2.0)
+
+    wins = find_windows(
+        mol, n_points_windows, l1, l2, cfg, pore_centre=pod_centre
+    )
+    wins = wins._replace(opt_capped=wins.opt_capped | pore_capped)
+    return FullAnalysis(
+        molecular_weight=mw,
+        centre_of_mass=com,
+        maxd_atom_1=a1,
+        maxd_atom_2=a2,
+        maximum_diameter=maxd,
+        average_diameter=avg,
+        pore_diameter=pd,
+        pore_atom=pd_atom,
+        pore_volume=pv,
+        pore_opt_diameter=pod,
+        pore_opt_atom=pod_atom,
+        pore_opt_centre=pod_centre,
+        pore_opt_volume=pov,
+        windows=wins,
+    )
+
+
+def pack_results(res: FullAnalysis) -> torch.Tensor:
+    """Flatten a FullAnalysis into one float vector, so the host fetches
+    one tensor.  Layout: 15 scalars, COM (3), optimised centre (3), then
+    per-window diameters / valid / refine_failed / centres (W slots)."""
+    w = res.windows
+    f = res.pore_diameter.dtype
+    scalars = [
+        res.molecular_weight,
+        res.maximum_diameter,
+        res.average_diameter,
+        res.pore_diameter,
+        res.pore_volume,
+        res.pore_opt_diameter,
+        res.pore_opt_volume,
+        res.maxd_atom_1,
+        res.maxd_atom_2,
+        res.pore_atom,
+        res.pore_opt_atom,
+        w.any_open,
+        w.n_clusters,
+        w.open_overflow,
+        w.opt_capped,
+    ]
+    return torch.cat(
+        [
+            torch.stack([s.to(f) for s in scalars]),
+            res.centre_of_mass,
+            res.pore_opt_centre,
+            w.diameters,
+            w.valid.to(f),
+            w.refine_failed.to(f),
+            w.centers.reshape(-1),
+        ]
+    )
+
+
+def unpack_results(flat: np.ndarray, max_windows: int) -> FullAnalysis:
+    """Host-side inverse of :func:`pack_results` (numpy arrays)."""
+    wnd = max_windows
+    s = flat[:15]
+    off = 21
+    wins = WindowsResult(
+        diameters=flat[off : off + wnd],
+        centers=flat[off + 3 * wnd : off + 6 * wnd].reshape(wnd, 3),
+        valid=flat[off + wnd : off + 2 * wnd] > 0.5,
+        any_open=np.bool_(s[11] > 0.5),
+        n_clusters=np.int32(round(float(s[12]))),
+        refine_failed=flat[off + 2 * wnd : off + 3 * wnd] > 0.5,
+        open_overflow=np.bool_(s[13] > 0.5),
+        opt_capped=np.bool_(s[14] > 0.5),
+    )
+    return FullAnalysis(
+        molecular_weight=s[0],
+        centre_of_mass=flat[15:18],
+        maxd_atom_1=np.int64(round(float(s[7]))),
+        maxd_atom_2=np.int64(round(float(s[8]))),
+        maximum_diameter=s[1],
+        average_diameter=s[2],
+        pore_diameter=s[3],
+        pore_atom=np.int64(round(float(s[9]))),
+        pore_volume=s[4],
+        pore_opt_diameter=s[5],
+        pore_opt_atom=np.int64(round(float(s[10]))),
+        pore_opt_centre=flat[18:21],
+        pore_opt_volume=s[6],
+        windows=wins,
+    )
+
+
+def static_sizes(
+    max_diameter: float, cfg: AnalysisConfig
+) -> tuple[int, int, int, int]:
+    """Static sampling sizes from a molecule's max diameter: point counts
+    exactly the reference's (the spiral layout depends on them), path
+    step bounds padded to multiples of 8."""
+    radius = max_diameter / 2.0
+    n_win = rays.number_of_points(radius, cfg.adjust)
+    n_avg = rays.number_of_points(max_diameter, cfg.adjust)
+    l1 = int(radius // cfg.increment) + 2
+    l2 = int(radius // cfg.increment2) + 2
+    return n_win, n_avg, ((l1 + 7) // 8) * 8, ((l2 + 7) // 8) * 8
+
+
+def max_dim_host(elements: np.ndarray, coordinates: np.ndarray) -> float:
+    """Maximum vdW-corrected diameter in host float64 numpy (row-chunked),
+    used only to size the sampling statically."""
+    vdw = tables.ELEMENT_VDW[tables.element_ids(elements)]
+    c = np.asarray(coordinates, dtype=np.float64)
+    best = 0.0
+    chunk = 1024
+    for lo in range(0, len(c), chunk):
+        diff = c[lo : lo + chunk, None, :] - c[None, :, :]
+        d = np.sqrt((diff * diff).sum(-1))
+        d += vdw[lo : lo + chunk, None]
+        d += vdw[None, :]
+        best = max(best, float(d.max()))
+    return best
+
+
+def analyze(
+    elements: np.ndarray,
+    coordinates: np.ndarray,
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    pad_to: int | None = None,
+    device: torch.device | str = "cpu",
+) -> dict:
+    """Host entry: full analysis of one molecule on ``device`` ->
+    reference-schema properties dict.
+
+    Re-runs with a doubled compaction fraction when the open rays
+    overflowed the cap, at the full optimiser budgets when a fast budget
+    stopped an optimiser, and with a doubled window cap when the
+    clusters filled every slot (up to MAX_WINDOWS_CEILING).
+    """
+    with stage("encode"):
+        mol = encode(elements, coordinates, pad_to=pad_to, device=device)
+    with stage("static_sizes"):
+        maxd = max_dim_host(np.asarray(elements), np.asarray(coordinates))
+        sizes = static_sizes(maxd, cfg)
+    while True:
+        with stage("full_analysis"):
+            flat = pack_results(full_analysis_device(mol, *sizes, cfg))
+            res = unpack_results(flat.cpu().numpy(), cfg.max_windows)
+        props = to_properties_dict(res)
+        overflow = props.pop("_open_cap_overflow", False)
+        budget = props.pop("_opt_budget_exceeded", False)
+        saturated = props.pop("_window_cap_saturated", False)
+        if overflow:
+            cfg = dataclasses.replace(
+                cfg, open_cap_frac=2.0 * cfg.open_cap_frac
+            )
+        elif budget and cfg.fast_budgets:
+            # only once: a full-budget run that still caps matches
+            # scipy's own maxiter stop
+            cfg = dataclasses.replace(cfg, fast_budgets=False)
+        elif saturated and cfg.max_windows < MAX_WINDOWS_CEILING:
+            cfg = dataclasses.replace(cfg, max_windows=2 * cfg.max_windows)
+        else:
+            break
+    if int(res.windows.n_clusters) >= cfg.max_windows:
+        logger.warning(
+            "window clusters reached max_windows=%d; raise "
+            "AnalysisConfig.max_windows if this system may have more",
+            cfg.max_windows,
+        )
+    METRICS.count("molecules_analysed")
+    METRICS.count("windows_found", int(np.sum(res.windows.valid)))
+    METRICS.count(
+        "window_refines_failed", int(np.sum(res.windows.refine_failed))
+    )
+    return props
+
+
+def to_properties_dict(res: FullAnalysis) -> dict:
+    """Results in the reference properties schema (keys as produced by
+    molecular.py:215-352), plus the ``_open_cap_overflow``,
+    ``_opt_budget_exceeded`` and ``_window_cap_saturated`` markers that
+    :func:`analyze` pops to decide a re-run."""
+    wins = res.windows
+    if not bool(wins.any_open):
+        windows = {"diameters": None, "centre_of_mass": None}
+    else:
+        valid = np.asarray(wins.valid)
+        windows = {
+            "diameters": np.asarray(wins.diameters)[valid],
+            "centre_of_mass": np.asarray(wins.centers)[valid],
+        }
+        if bool(np.any(np.asarray(wins.refine_failed))):
+            logger.warning(
+                "one of the analysed windows has returned as None "
+                "(refinement failed); see manual"
+            )
+        if windows["diameters"].size and np.any(windows["diameters"] < 0):
+            logger.warning(
+                "one of the analysed windows has a vdW-corrected diameter "
+                "smaller than 0; see manual"
+            )
+    out = {
+        "centre_of_mass": np.asarray(res.centre_of_mass),
+        "maximum_diameter": {
+            "diameter": float(res.maximum_diameter),
+            "atom_1": int(res.maxd_atom_1),
+            "atom_2": int(res.maxd_atom_2),
+        },
+        "average_diameter": float(res.average_diameter),
+        "pore_diameter": {
+            "diameter": float(res.pore_diameter),
+            "atom": int(res.pore_atom),
+        },
+        "pore_volume": float(res.pore_volume),
+        "pore_diameter_opt": {
+            "diameter": float(res.pore_opt_diameter),
+            "atom_1": int(res.pore_opt_atom),
+            "centre_of_mass": np.asarray(res.pore_opt_centre),
+        },
+        "pore_volume_opt": float(res.pore_opt_volume),
+        "windows": windows,
+        "molecular_weight": float(res.molecular_weight),
+    }
+    if int(wins.n_clusters) >= len(np.asarray(wins.diameters)):
+        out["_window_cap_saturated"] = True
+    if bool(wins.open_overflow):
+        out["_open_cap_overflow"] = True
+    if bool(np.asarray(wins.opt_capped)):
+        out["_opt_budget_exceeded"] = True
+    return out

@@ -1,0 +1,79 @@
+"""Host-side -> device-side molecule encoding.
+
+Elements become integer ids once, per-atom mass/vdW/covalent radii are
+looked up from the tables, and the molecule is padded to a static atom
+count with a validity mask (counterpart of
+``pywindow_tpu.ops.encoding``, encoding.py:23-113).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pywindow_torch import tables
+from pywindow_torch.config import default_dtype, pad_multiple
+
+
+class MolArrays(NamedTuple):
+    """Padded, masked tensors of one molecule (or a batch of them).
+
+    All fields share leading batch dims; the trailing atom axis is
+    padded.  Padded slots have ``mask == False``, zero mass and radii,
+    and coordinates parked at :data:`FAR_AWAY`, so they can never win a
+    distance ``min``; max-style reductions must still apply ``mask``.
+    """
+
+    coords: torch.Tensor  # (..., N, 3)
+    mass: torch.Tensor  # (..., N)
+    vdw: torch.Tensor  # (..., N)
+    cov: torch.Tensor  # (..., N)
+    mask: torch.Tensor  # (..., N) bool
+
+
+    def to(self, dtype: torch.dtype) -> MolArrays:
+        """The same molecule with float fields cast to ``dtype``."""
+        return MolArrays(
+            *(t.to(dtype) if t.is_floating_point() else t for t in self)
+        )
+
+
+#: coordinate sentinel for padded atom slots.
+FAR_AWAY = 1.0e6
+
+
+def round_up(n: int, multiple: int) -> int:
+    """Smallest multiple of *multiple* that is >= *n*."""
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def encode(
+    elements: np.ndarray,
+    coordinates: np.ndarray,
+    pad_to: int | None = None,
+    dtype: torch.dtype | None = None,
+    device: torch.device | str = "cpu",
+) -> MolArrays:
+    """Encode one molecule's host data into padded tensors on ``device``."""
+    dtype = dtype or default_dtype(device)
+    ids = tables.element_ids(elements)
+    n = len(ids)
+    n_pad = pad_to if pad_to is not None else round_up(max(n, 1), pad_multiple())
+    if n_pad < n:
+        msg = f"pad_to={n_pad} smaller than atom count {n}"
+        raise ValueError(msg)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    coords = np.full((n_pad, 3), FAR_AWAY, dtype=np_dtype)
+    coords[:n] = np.asarray(coordinates, dtype=np_dtype)
+    fields = [np.zeros(n_pad, dtype=np_dtype) for _ in range(3)]
+    for field, table in zip(
+        fields, (tables.ELEMENT_MASS, tables.ELEMENT_VDW, tables.ELEMENT_COV)
+    ):
+        field[:n] = table[ids]
+    mask = np.zeros(n_pad, dtype=bool)
+    mask[:n] = True
+    return MolArrays(
+        *(torch.as_tensor(f, device=device) for f in (coords, *fields, mask))
+    )

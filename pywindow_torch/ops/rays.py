@@ -1,0 +1,222 @@
+"""Golden-spiral sampling and the ray analyses (counterpart of
+``pywindow_tpu.ops.rays``).
+
+Rays start at the coordinate mean of the (already centred) molecule and
+run along unit vectors towards points of a sampling sphere centred at
+the origin (reference: utilities.py:1100-1161, :1556-1583).  The two
+per-ray reductions go through :mod:`pywindow_torch.ops.ray_kernels`:
+``ray_exit`` for the pre-analysis and the average diameter, and
+``path_sweep`` for the coarse path sweep.  The W-slot fine re-sampling
+(:func:`fine_path_analysis`) runs the step-chunked plain form on every
+device; its kernel (``_fine_path_flat`` in the JAX package) is still to
+be ported.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pywindow_torch.ops import ray_kernels
+from pywindow_torch.ops.encoding import MolArrays
+from pywindow_torch.ops.geometry import (
+    BIG,
+    center_of_coor,
+    clearance_field,
+    sq_norm3,
+)
+
+
+def number_of_points(sphere_radius: float, adjust: float = 1.0) -> int:
+    """Sampling-point count ``int(log10(4 pi r^2) * 250 * adjust)``
+    (reference: utilities.py:1398-1409)."""
+    area = 4.0 * np.pi * float(sphere_radius) ** 2
+    return int(np.log10(area) * 250.0 * adjust)
+
+
+def linspace(start, stop, num: int, dtype, device) -> torch.Tensor:
+    """``jnp.linspace`` (endpoint included) with JAX's own arithmetic:
+    ``start * (1 - i/div) + stop * (i/div)``, then ``stop`` exactly.
+    ``start``/``stop`` may be tensors with batch dims (-> (..., num))."""
+    start = torch.as_tensor(start, dtype=dtype, device=device)
+    stop = torch.as_tensor(stop, dtype=dtype, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=dtype, device=device) / div
+    out = start[..., None] * (1 - step) + stop[..., None] * step
+    return torch.cat([out, stop[..., None]], dim=-1)
+
+
+def golden_spiral(n_points: int, radius: torch.Tensor) -> torch.Tensor:
+    """``n_points`` golden-angle spiral points on a sphere of ``radius``
+    (a 0-d tensor), the reference's layout (utilities.py:1410-1423)."""
+    dtype, device = radius.dtype, radius.device
+    golden_angle = math.pi * (
+        3.0 - torch.sqrt(torch.tensor(5.0, dtype=dtype, device=device))
+    )
+    theta = golden_angle * torch.arange(n_points, dtype=dtype, device=device)
+    z = linspace(
+        1.0 - 1.0 / n_points, 1.0 / n_points - 1.0, n_points, dtype, device
+    )
+    rho = torch.sqrt(1.0 - z * z)
+    return radius * torch.stack(
+        [rho * torch.cos(theta), rho * torch.sin(theta), z], dim=-1
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def _unit_mean_knn(n_points: int, k: int, dtype_name: str) -> float:
+    """Mean k-NN distance (self included) of the unit-radius spiral: a
+    host constant per point count (the k-NN mean scales with radius)."""
+    dtype = np.dtype(dtype_name)
+    golden_angle = np.pi * (3.0 - np.sqrt(dtype.type(5.0)))
+    kk = np.arange(n_points, dtype=dtype)
+    theta = golden_angle * kk
+    z = np.linspace(
+        1.0 - 1.0 / n_points, 1.0 / n_points - 1.0, n_points, dtype=dtype
+    )
+    rho = np.sqrt(1.0 - z * z)
+    pts = np.stack(
+        [rho * np.cos(theta), rho * np.sin(theta), z], axis=-1
+    )
+    d = np.sqrt(((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1))
+    nearest = np.sort(d, axis=1)[:, :k]
+    return float(nearest.mean())
+
+
+def mean_knn_eps_scaled(
+    n_points: int, radius: torch.Tensor, k: int = 10
+) -> torch.Tensor:
+    """DBSCAN eps for a spiral of ``radius``: ``m*r + sqrt(m*r)`` with
+    ``m`` the unit-sphere mean k-NN distance (reference:
+    utilities.py:1424-1434)."""
+    name = str(radius.dtype).removeprefix("torch.")
+    m = radius * _unit_mean_knn(n_points, k, name)
+    return m + torch.sqrt(m)
+
+
+def _ray_frame(
+    points: torch.Tensor, mol: MolArrays
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(unit directions, atoms relative to the ray origin, origin)."""
+    unit = points / torch.sqrt(sq_norm3(points))[..., None]
+    origin = center_of_coor(mol)
+    rel = torch.where(mol.mask[..., None], mol.coords - origin, 0.0)
+    return unit, rel, origin
+
+
+def preanalysis_open(points: torch.Tensor, mol: MolArrays) -> torch.Tensor:
+    """True for rays with no blocking ('front') sphere intersection
+    (reference ``vector_preanalysis``, utilities.py:1132-1161)."""
+    unit, rel, origin = _ray_frame(points, mol)
+    any_front, _ = ray_kernels.ray_exit(
+        unit, rel, mol.vdw, origin, want_exit=False
+    )
+    return ~any_front
+
+
+def reversed_exit_distance(
+    points: torch.Tensor, mol: MolArrays
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(has_front, farthest front exit distance) per ray, for the
+    average diameter (reference: utilities.py:1556-1583)."""
+    unit, rel, origin = _ray_frame(points, mol)
+    return ray_kernels.ray_exit(unit, rel, mol.vdw, origin, want_exit=True)
+
+
+def average_diameter(
+    mol: MolArrays, n_points: int, sphere_radius: torch.Tensor
+) -> torch.Tensor:
+    """``2 * mean(max exit distance)`` over rays that hit anything; the
+    sampling radius is the full maximum diameter (reference:
+    utilities.py:1586-1650)."""
+    has, dist = reversed_exit_distance(
+        golden_spiral(n_points, sphere_radius), mol
+    )
+    total = torch.where(has, dist, 0.0).sum(-1)
+    return 2.0 * total / has.sum(-1).to(dist.dtype)
+
+
+class PathAnalysis(NamedTuple):
+    """Result of sampling clearance along each ray path."""
+
+    ok: torch.Tensor  # (..., P) all path clearances positive
+    dist: torch.Tensor  # (..., P) distance from origin to narrowest point
+    width: torch.Tensor  # (..., P) 2 * clearance at the narrowest point
+    narrow: torch.Tensor  # (..., P, 3) coordinates of the narrowest point
+
+
+def _chunks(vectors: torch.Tensor, increment: float):
+    norm = torch.sqrt(sq_norm3(vectors))
+    chunks = torch.clamp_min(torch.floor(norm / increment).to(torch.int32), 1)
+    return norm, chunks
+
+
+def _path_result(vectors, norm, chunks, ok, pos, cmin) -> PathAnalysis:
+    dtype = vectors.dtype
+    posf = pos.to(dtype)
+    chunksf = chunks.to(dtype)
+    return PathAnalysis(
+        ok=ok,
+        dist=norm * posf / chunksf,
+        width=2.0 * cmin,
+        narrow=vectors * (posf / chunksf)[..., None],
+    )
+
+
+def path_analysis(
+    vectors: torch.Tensor, mol: MolArrays, increment: float, max_steps: int
+) -> PathAnalysis:
+    """Walk each vector (P, 3) from the origin in ``increment`` steps:
+    clearance at the ``chunks + 1`` points ``i * v / chunks``, the ray
+    open iff every clearance is positive (reference:
+    utilities.py:1100-1129).  ``max_steps`` bounds the walk statically.
+    Runs on ``ray_kernels.path_sweep``."""
+    norm, chunks = _chunks(vectors, increment)
+    ok, pos, cmin = ray_kernels.path_sweep(
+        vectors, chunks, mol.coords, mol.vdw, max_steps
+    )
+    return _path_result(vectors, norm, chunks, ok, pos, cmin)
+
+
+def fine_path_analysis(
+    vectors: torch.Tensor,
+    mol: MolArrays,
+    increment: float,
+    max_steps: int,
+    chunk_len: int = 16,
+) -> PathAnalysis:
+    """:func:`path_analysis` for the few W-slot rays of the window
+    refinement, as the JAX package runs it for one molecule: the path
+    scanned in ``chunk_len``-step blocks reduced into running
+    (ok, first-argmin step, min clearance) carries (rays.py:219-271)."""
+    dtype = vectors.dtype
+    norm, chunks = _chunks(vectors, increment)
+    chunksf = chunks.to(dtype)
+    n_blocks = (max_steps + chunk_len - 1) // chunk_len
+    all_steps = torch.arange(
+        n_blocks * chunk_len, dtype=dtype, device=vectors.device
+    ).reshape(n_blocks, chunk_len)
+    shape_p = vectors.shape[:-1]
+    ok = torch.ones(shape_p, dtype=torch.bool, device=vectors.device)
+    pos = torch.zeros(shape_p, dtype=dtype, device=vectors.device)
+    cmin = torch.full(shape_p, BIG, dtype=dtype, device=vectors.device)
+    for steps in all_steps:
+        frac = steps / chunksf[..., None]  # (..., P, chunk)
+        pathway = vectors[..., None, :] * frac[..., None]
+        flat = pathway.reshape(*pathway.shape[:-3], -1, 3)
+        c = clearance_field(flat, mol).reshape(pathway.shape[:-1])
+        valid = (steps.to(torch.int32) <= chunks[..., None]) & (
+            steps < max_steps
+        )
+        ok = ok & ((c > 0.0) | ~valid).all(-1)
+        c_masked = torch.where(valid, c, BIG)
+        blk_min = c_masked.amin(-1)
+        blk_pos = steps[c_masked.argmin(-1)]
+        better = blk_min < cmin  # strict: earlier blocks keep ties
+        cmin = torch.where(better, blk_min, cmin)
+        pos = torch.where(better, blk_pos, pos)
+    return _path_result(vectors, norm, chunks, ok, pos, cmin)

@@ -1,0 +1,366 @@
+"""The window-finding pipeline (counterpart of ``pywindow_tpu.ops.windows``).
+
+Reproduces ``find_windows`` (reference: utilities.py:1364-1553) and the
+per-cluster refinement ``window_analysis`` (reference:
+utilities.py:1191-1361):
+
+1. shift the molecule so the (optionally optimised) pore centre sits at
+   the origin,
+2. golden-spiral rays over a sphere of radius max_dim/2; the analytic
+   pre-analysis culls blocked rays; the open ones, compacted in order,
+   are path-sampled at 1 Å steps and kept if the whole path is clear,
+3. DBSCAN over the surviving rays' sphere points,
+4. per cluster: the widest ray is re-sampled at 0.1 Å, the molecule is
+   rotated so that ray becomes +Z and translated so the ray's narrowest
+   point is the origin, then the window centre is refined: bounded 1-D
+   L-BFGS-B in z, 20x20 brute grid + Nelder–Mead polish in xy,
+5. window diameter = clearance diameter at the refined centre, rotated
+   back into the input frame.
+
+The W window slots are refined together as W optimiser lanes.  The
+optimisers run as plain tensor code in the dtype's mode (see
+:func:`pywindow_torch.config.window_opt_mode`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from pywindow_torch.config import (
+    OPT_DTYPE,
+    AnalysisConfig,
+    effective_budgets,
+    window_opt_mode,
+)
+from pywindow_torch.ops import rays
+from pywindow_torch.ops.cluster_kernels import dbscan
+from pywindow_torch.ops.encoding import MolArrays
+from pywindow_torch.ops.geometry import (
+    BIG,
+    center_of_mass,
+    clearance_diff,
+    clearance_field,
+    max_dim_value,
+    pore_diameter,
+)
+from pywindow_torch.ops.lbfgsb import lbfgsb_minimize, lbfgsb_minimize_stable
+from pywindow_torch.ops.optim import brute_then_polish
+
+
+class WindowsResult(NamedTuple):
+    """Padded window set for one molecule."""
+
+    diameters: torch.Tensor  # (W,)
+    centers: torch.Tensor  # (W, 3) in the input coordinate frame
+    valid: torch.Tensor  # (W,) bool
+    any_open: torch.Tensor  # bool; False == the reference's None return
+    n_clusters: torch.Tensor  # int32 (before refinement failures)
+    refine_failed: torch.Tensor  # (W,) bool, for warning parity
+    open_overflow: torch.Tensor  # bool: open rays exceeded the compaction
+    #                             cap (the host re-runs with a doubled
+    #                             cfg.open_cap_frac)
+    opt_capped: torch.Tensor  # bool: a real window slot (or, once
+    #                          full_analysis_device adds it, the pore
+    #                          centre) stopped on its fast budget (the
+    #                          host re-runs with cfg.fast_budgets=False)
+
+
+def open_cap(n_points: int, frac: float) -> int | None:
+    """Compacted open-ray slot count, or ``None`` when compaction is off
+    (a cap that would not shrink the sweep disables it)."""
+    if frac >= 1.0:
+        return None
+    k = ((int(math.ceil(n_points * frac)) + 127) // 128) * 128
+    return k if k < n_points else None
+
+
+def _octant_angles(vector: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotation angles taking ``vector`` (..., 3) to +Z, with the
+    reference's per-octant sign table (utilities.py:1235-1258)."""
+    vx, vy, vz = vector[..., 0], vector[..., 1], vector[..., 2]
+    two_pi = 2.0 * math.pi
+    # angle_between uses |dot|, so both raw angles are in [0, pi/2]
+    # (reference: utilities.py:1088-1097)
+    a1r = torch.arccos(torch.clamp(vx.abs() / torch.sqrt(vx * vx + vy * vy), 0.0, 1.0))
+    vnorm = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    a2r = torch.arccos(torch.clamp(vz.abs() / vnorm, 0.0, 1.0))
+    xp, yp, zp = vx >= 0, vy >= 0, vz >= 0
+    a1 = torch.where(
+        zp,
+        torch.where(
+            xp,
+            torch.where(yp, -a1r, a1r),
+            torch.where(yp, two_pi + a1r, two_pi - a1r),
+        ),
+        torch.where(
+            xp,
+            torch.where(yp, -a1r, a1r),
+            torch.where(yp, a1r, -a1r),
+        ),
+    )
+    a2 = torch.where(
+        zp,
+        torch.where(xp, -a2r, a2r),
+        torch.where(xp, math.pi + a2r, math.pi - a2r),
+    )
+    return a1, a2
+
+
+def _rot_z(angle: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angle), torch.sin(angle)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack(
+        [torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+         torch.stack([z, z, o], -1)],
+        -2,
+    )
+
+
+def _rot_y(angle: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angle), torch.sin(angle)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack(
+        [torch.stack([c, z, s], -1), torch.stack([z, o, z], -1),
+         torch.stack([-s, z, c], -1)],
+        -2,
+    )
+
+
+def _apply(rot: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """``pts @ rot.T`` per lane, as explicit sums: rot (B, 3, 3),
+    pts (B, ..., 3)."""
+    r = rot.reshape(rot.shape[:1] + (1,) * (pts.ndim - 2) + (3, 3))
+    return torch.stack(
+        [
+            pts[..., 0] * r[..., i, 0]
+            + pts[..., 1] * r[..., i, 1]
+            + pts[..., 2] * r[..., i, 2]
+            for i in range(3)
+        ],
+        -1,
+    )
+
+
+def _z_stable_probe(rmol: MolArrays, xy: torch.Tensor):
+    """Symbolic-difference evaluator of the window z objective
+    ``f(z) = 2 * clearance((xy_0, xy_1, z))`` on the rotated molecule
+    (reference ``optimise_z``, utilities.py:1174-1188), as the
+    ``(probe, f_abs)`` pair of :func:`lbfgsb_minimize_stable`; lanes
+    are windows, xy is (W, 2)."""
+
+    def embed(zv):  # (W, 1) -> (W, 3)
+        return torch.cat([xy, zv], -1)
+
+    def ez(v):  # (W, ...) -> (W, ..., 3) displacement along z
+        zero = torch.zeros_like(v)
+        return torch.stack([zero, zero, v], -1)
+
+    def probe(zv, disp, h):
+        x3 = embed(zv)
+        dd = ez(disp[:, 0])
+        delta = 2.0 * clearance_diff(x3, dd[:, None, :], rmol)[:, 0]
+        dprobe = 2.0 * clearance_diff(x3 + dd, ez(h), rmol)
+        return delta, dprobe / h
+
+    def f_abs(zv):
+        return 2.0 * clearance_field(embed(zv)[:, None, :], rmol)[:, 0]
+
+    return probe, f_abs
+
+
+def _z_minimize(rmol, xy, z0, z_lower, z_up, stable, maxiter):
+    if stable:
+        probe, f_abs = _z_stable_probe(rmol, xy)
+        return lbfgsb_minimize_stable(
+            probe, f_abs, z0, z_lower, z_up, maxiter=maxiter
+        )
+
+    def f_z(zs):  # (W, K, 1) -> (W, K)
+        pts = torch.cat([xy[:, None, :].expand(-1, zs.shape[1], -1), zs], -1)
+        return 2.0 * clearance_field(pts, rmol)
+
+    return lbfgsb_minimize(f_z, z0, z_lower, z_up, maxiter=maxiter)
+
+
+def _window_refine(
+    mol: MolArrays,
+    vector: torch.Tensor,
+    new_z: torch.Tensor,
+    cfg: AnalysisConfig,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Refine W windows from their widest sampling rays, as W lanes.
+
+    ``mol`` is the pore-centred molecule; ``vector`` (W, 3) the widest
+    rays; ``new_z`` (W,) the distance of each ray's narrowest point
+    (from the fine re-sampling).  Runs in
+    :data:`~pywindow_torch.config.OPT_DTYPE` (rotation included) and
+    returns (diameter (W,), centre (W, 3), capped (W,)) in that dtype.
+    """
+    opt_maxiter, nm_maxiter = effective_budgets(cfg)
+    stable = window_opt_mode(vector.dtype) == "stable"
+    mol, vector, new_z = mol.to(OPT_DTYPE), vector.to(OPT_DTYPE), new_z.to(OPT_DTYPE)
+    dtype, device = vector.dtype, vector.device
+    n_w = vector.shape[0]
+    a1, a2 = _octant_angles(vector)
+    coords = _apply(_rot_y(a2), _apply(_rot_z(a1), mol.coords.expand(n_w, -1, -1)))
+    coords = coords - torch.stack(
+        [torch.zeros_like(new_z), torch.zeros_like(new_z), new_z], -1
+    )[:, None, :]
+    rmol = mol._replace(coords=coords)
+
+    zeros = torch.zeros((n_w, 1), dtype=dtype, device=device)
+    wd0 = 2.0 * clearance_field(
+        torch.zeros((n_w, 1, 3), dtype=dtype, device=device), rmol
+    )[:, 0]
+
+    # z minimisation (reference: utilities.py:1299-1305)
+    z_lower = (-new_z if cfg.lb_z else torch.full_like(new_z, -1e10))[:, None]
+    z_up = torch.full_like(z_lower, 1e10)
+    xy0 = torch.zeros((n_w, 2), dtype=dtype, device=device)
+    zres = _z_minimize(rmol, xy0, zeros, z_lower, z_up, stable, opt_maxiter)
+    z_star = zres.x[:, 0]
+    capped = zres.capped
+
+    # xy brute grid + Nelder-Mead polish (utilities.py:1307-1317)
+    if stable:
+        # delta space: every candidate as f(p) - f(anchor) through the
+        # symbolic-difference kernel, so the grid argmin and every
+        # Nelder-Mead comparison see full-precision differences
+        anchor = torch.stack([xy0[:, 0], xy0[:, 1], z_star], -1)
+
+        def f_xy(xys):  # (W, K, 2) -> (W, K)
+            disp = torch.cat([xys, torch.zeros_like(xys[..., :1])], -1)
+            return -2.0 * clearance_diff(anchor, disp, rmol)
+
+    else:
+
+        def f_xy(xys):  # (W, K, 2) -> (W, K), negative diameter
+            zs = z_star[:, None, None].expand(-1, xys.shape[1], 1)
+            return -2.0 * clearance_field(torch.cat([xys, zs], -1), rmol)
+
+    half = wd0 / 2.0
+    xy_star, _, nm_capped = brute_then_polish(
+        f_xy,
+        torch.stack([-half, -half], -1),
+        torch.stack([half, half], -1),
+        ns=cfg.brute_ns,
+        maxiter=nm_maxiter,
+    )
+    capped = capped | nm_capped
+
+    if cfg.z_second_mini:
+        zres2 = _z_minimize(
+            rmol, xy_star, zres.x, z_lower, z_up, stable, opt_maxiter
+        )
+        z_star = zres2.x[:, 0]
+        capped = capped | zres2.capped
+
+    centre_local = torch.cat([xy_star, z_star[:, None]], -1)
+    diameter = 2.0 * clearance_field(centre_local[:, None, :], rmol)[:, 0]
+
+    # reverse the transforms (utilities.py:1338-1360)
+    centre = centre_local + torch.stack(
+        [torch.zeros_like(new_z), torch.zeros_like(new_z), new_z], -1
+    )
+    centre = _apply(_rot_z(-a1), _apply(_rot_y(-a2), centre))
+    return diameter, centre, capped
+
+
+def find_windows(
+    mol: MolArrays,
+    n_points: int,
+    l1: int,
+    l2: int,
+    cfg: AnalysisConfig,
+    pore_centre: torch.Tensor,
+) -> WindowsResult:
+    """Full window detection for one molecule (input frame coordinates).
+
+    ``pore_centre`` is the optimised pore centre the caller computed
+    (the reference reruns the same deterministic optimisation here,
+    utilities.py:1388); with ``cfg.pore_opt`` off the rays start from the
+    centre of mass instead.
+    """
+    dtype, device = mol.coords.dtype, mol.coords.device
+    initial_com = center_of_mass(mol)
+    # no interior at the COM -> no pore -> no windows (the reference
+    # crashes here on inverted scipy bounds, utilities.py:416-421)
+    pd_com, _ = pore_diameter(mol, com=initial_com)
+    has_pore = pd_com > 0.0
+    centre = pore_centre if cfg.pore_opt else initial_com
+
+    shifted = mol._replace(coords=mol.coords - centre)
+    radius = max_dim_value(shifted) / 2.0
+    points = rays.golden_spiral(n_points, radius)
+    eps = rays.mean_knn_eps_scaled(n_points, radius)
+    open_pre = rays.preanalysis_open(points, shifted)
+
+    # open-ray compaction: the coarse sweep and DBSCAN only consume rays
+    # the pre-analysis left open, so they run on the first K open rays
+    # in spiral order (slot s takes the (s+1)-th open ray, found by a
+    # search of the running open count: no host sync); every later
+    # quantity depends only on relative order, so results equal the
+    # full-spiral path whenever the open count fits the cap, and
+    # overflow is flagged for the host's re-run.  Empty slots are zero
+    # rays, as the JAX package's one-hot compaction leaves them.
+    kcap = open_cap(n_points, cfg.open_cap_frac)
+    if kcap is None:
+        cpoints = points
+        path = rays.path_analysis(points, shifted, cfg.increment, l1)
+        survives = open_pre & path.ok & has_pore
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
+    else:
+        count = torch.cumsum(open_pre.to(torch.int64), 0)
+        n_open = count[-1]
+        overflow = n_open > kcap
+        slot = torch.arange(kcap, device=device)
+        src = torch.searchsorted(count, slot + 1).clamp_max(n_points - 1)
+        slot_valid = slot < n_open
+        cpoints = torch.where(slot_valid[:, None], points[src], 0.0)
+        path = rays.path_analysis(cpoints, shifted, cfg.increment, l1)
+        survives = slot_valid & path.ok & has_pore
+    any_open = survives.any()
+
+    labels, n_clusters = dbscan(
+        cpoints,
+        survives,
+        eps,
+        min_samples=cfg.dbscan_min_samples,
+        max_clusters=cfg.max_windows,
+    )
+
+    # empty window slots refine any valid surviving ray instead of a
+    # garbage vector, so their discarded optimiser lanes stop early
+    fallback_sel = torch.where(survives, path.width, -BIG).argmax()
+
+    # widest-ray selection + fine 0.1 Å re-sampling for all W slots
+    w_ids = torch.arange(cfg.max_windows, dtype=torch.int32, device=device)
+    in_cluster = labels[None, :] == w_ids[:, None]  # (W, K)
+    width_masked = torch.where(in_cluster, path.width[None, :], -BIG)
+    exists = (w_ids < n_clusters) & in_cluster.any(-1)
+    sel = torch.where(exists, width_masked.argmax(-1), fallback_sel)
+    vectors = cpoints[sel]  # (W, 3)
+    refined = rays.fine_path_analysis(vectors, shifted, cfg.increment2, l2)
+
+    diams, centres, w_capped = _window_refine(
+        shifted, vectors, refined.dist, cfg
+    )
+    diams, centres = diams.to(dtype), centres.to(dtype)
+    failed = exists & ~refined.ok
+    valid = exists & ~failed
+    centres = centres + centre
+    # budget escalation: only real window slots count
+    opt_capped = (exists & w_capped).any()
+    return WindowsResult(
+        diameters=torch.where(valid, diams, math.nan),
+        centers=torch.where(valid[:, None], centres, math.nan),
+        valid=valid,
+        any_open=any_open,
+        n_clusters=n_clusters,
+        refine_failed=failed,
+        open_overflow=overflow,
+        opt_capped=opt_capped,
+    )
