@@ -7,22 +7,45 @@ result line):
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions, float32 matmuls in full precision;
-2. build the three CUDA kernels from ``pywindow_torch/csrc``;
+2. build the six CUDA kernels from ``pywindow_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, on the
-   inputs the main path gives it for CC3 (PUDXES, 168 atoms) and REYMAL
-   (468 atoms), in float32 and in float64, with warm timings;
+   inputs the main paths give it (single runs of CC3 = PUDXES, 168
+   atoms, and REYMAL, 468 atoms, and the sweep's first 1,440-frame
+   chunk, whose neighbouring lanes hold different frames; the plain
+   versions take that chunk in slices of lanes), in float64 and, for
+   the ray kernels and DBSCAN, float32; warm timings and each kernel's
+   bound (the least time the card could take);
 4. the 7-system golden gate through
-   ``MolecularSystem.load_file(...).system_to_molecule().full_analysis(device="cuda")``
-   (float32 pipeline), with the kernel launch counters reset just
-   before it;
-5. every kernel was launched by phase 4.
+   ``MolecularSystem.load_file(...).system_to_molecule().full_analysis()``
+   (the card is the default device; float32 pipeline, float64 optimiser
+   kernels), every system within 0.01 Å;
+5. the batched gate: ``analyze_batch`` of 128 CC3 copies, every frame
+   within 0.01 Å of the goldens;
+6. the trajectory sweep at full width: a 4,320-frame DL_POLY HISTORY
+   (the 20-frame CC3 fixture cycled, as ``bench.py`` builds it) through
+   ``DLPOLY(path).analysis_batched(..., batch_size=1440)``: all results
+   present and finite, frames per second and peak device memory per
+   chunk; then, outside the sweep's launch count, eight distinct frames
+   against the single-frame path (pore_opt against ``full_analysis()``,
+   windows against the frame alone at the sweep's sampling pin);
+7. the profile: host stage spans of one PUDXES and one REYMAL molecule,
+   and the device's busy share and kernel launches of a molecule and of
+   a 1,440-frame chunk (``torch.profiler``).
 
-The last two lines of standard output are the kernel record and
-``{"ok": true, "device": {...}}``.
+Phases 4-6 are the main paths: before each the kernel launch counters
+are set to 0 and after it every kernel must have launched; every call of
+the device pipeline must launch each kernel as often as every other
+(the count does not depend on the batch size), and no plain optimiser
+loop may run on a CUDA tensor.  The kernel record's launch counts are
+the sweep's own.
+
+The last three lines of standard output are the kernel record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -35,11 +58,19 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
+HISTORY = DATA / "HISTORY_singlemol_short"
+SWEEP_FRAMES = 4320
+SWEEP_CHUNK = 1440
+SWEEP_LABEL = f"sweep{SWEEP_CHUNK}"
+BATCH_GATE = 128
+#: 8 sweep frames held against the single-frame path: distinct fixture
+#: frames (frame % 20), from all three chunks
+SWEEP_SAMPLE = [0, 3, 1447, 1450, 2885, 2898, 4306, 4319]
 
 #: the golden gate of scripts/validate_f32.py:37-97 (values from
 #: BASELINE.md: reference tests and example scripts; REYMAL windows from
-#: the JAX package's CPU float64 run).  NUXHIZ carries 0.05 Å where the
-#: optimisers do not run as kernels (validate_f32.py:70-83, 135-136).
+#: the JAX package's CPU float64 run), every system within 0.01 Å now
+#: that the optimisers run as kernels (validate_f32.py:70-77).
 GOLD = {
     "PUDXES": {
         "pore": 5.397020177310022,
@@ -60,7 +91,6 @@ GOLD = {
         ],
     },
     "NUXHIZ": {
-        "tol": 0.05,
         "pore": 8.746544980478657,
         "windows": [6.503653849037591, 7.269555216539536, 7.903902924542914],
     },
@@ -78,12 +108,21 @@ GOLD = {
         ],
     },
 }
+TOL = 0.01
 
 KERNELS = {
     "ray_exit": ("pywindow_torch/csrc/ray_exit.cu", "pywindow_tpu/ops/pallas_kernels.py:445"),
     "path_sweep": ("pywindow_torch/csrc/path_sweep.cu", "pywindow_tpu/ops/pallas_kernels.py:170"),
     "dbscan": ("pywindow_torch/csrc/dbscan.cu", "pywindow_tpu/ops/cluster_pallas.py:62"),
+    "lbfgsb_stable": ("pywindow_torch/csrc/lbfgsb_stable.cu", "pywindow_tpu/ops/lbfgsb_pallas.py:864"),
+    "nm_xy": ("pywindow_torch/csrc/nm_xy.cu", "pywindow_tpu/ops/nm_pallas.py:283"),
+    "fine_path": ("pywindow_torch/csrc/fine_path.cu", "pywindow_tpu/ops/pallas_kernels.py:799"),
 }
+
+#: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM3 bytes
+#: per second, and operations per second outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def structure(name: str) -> pathlib.Path:
@@ -94,6 +133,12 @@ def structure(name: str) -> pathlib.Path:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def molecule(name: str):
+    import pywindow_torch as pt
+
+    return pt.MolecularSystem.load_file(structure(name)).system_to_molecule()
 
 
 def phase_card() -> str:
@@ -123,48 +168,80 @@ def phase_build() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s (into {_cuda.BUILD_DIR})")
 
 
-def record_inputs(names: list[str]) -> dict[str, list[tuple[str, tuple]]]:
-    """Run the main path once per system and keep a copy of every input
-    each kernel wrapper received (these runs are warm-up only)."""
-    import pywindow_torch as pt
-    from pywindow_torch.ops import cluster_kernels, ray_kernels
+# -- phase 3: every kernel against its plain version --------------------------
 
-    seen: dict[str, list[tuple[str, tuple]]] = {k: [] for k in KERNELS}
-    wrapped = [
-        (ray_kernels, "ray_exit_cuda", "ray_exit"),
-        (ray_kernels, "path_sweep_cuda", "path_sweep"),
-        (cluster_kernels, "dbscan_labels_cuda", "dbscan"),
+
+def wrappers():
+    """(module, wrapper attribute, kernel name, plain version) of every
+    kernel the main path launches."""
+    from pywindow_torch.ops import (
+        cluster,
+        cluster_kernels,
+        lbfgsb_kernels,
+        nm_kernels,
+        ray_kernels,
+    )
+
+    def dbscan_plain(points, valid, eps, min_samples, max_clusters):
+        return cluster.dbscan(points, valid, eps, min_samples, max_clusters)[0]
+
+    return [
+        (ray_kernels, "ray_exit_cuda", "ray_exit", ray_kernels.ray_exit_plain),
+        (ray_kernels, "path_sweep_cuda", "path_sweep", ray_kernels.path_sweep_plain),
+        (cluster_kernels, "dbscan_labels_cuda", "dbscan", dbscan_plain),
+        (lbfgsb_kernels, "lbfgsb_stable_flat_cuda", "lbfgsb_stable",
+         lbfgsb_kernels.lbfgsb_stable_flat_plain),
+        (nm_kernels, "nm_xy_flat_cuda", "nm_xy", nm_kernels.nm_xy_flat_plain),
+        (ray_kernels, "fine_path_cuda", "fine_path", ray_kernels.fine_path_plain),
     ]
-    originals = {(m, a): getattr(m, a) for m, a, _ in wrapped}
+
+
+def record_inputs() -> dict[str, list[tuple[str, tuple, dict]]]:
+    """Run the main paths once (warm-up only) and keep a copy of every
+    input each kernel wrapper received: single PUDXES and REYMAL runs and
+    the sweep's first 1,440-frame chunk (the 20 distinct fixture frames
+    cycled, so neighbouring lanes hold different frames)."""
+    import pywindow_torch as pt
+
+    seen: dict[str, list] = {k: [] for k in KERNELS}
     current = [""]
+    originals = []
 
     def recorder(fn, key):
-        def run(*args):
-            seen[key].append(
-                (current[0], tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-            )
-            return fn(*args)
+        def run(*args, **kwargs):
+            copy = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            seen[key].append((current[0], copy, dict(kwargs)))
+            return fn(*args, **kwargs)
 
         return run
 
     try:
-        for module, attr, key in wrapped:
-            setattr(module, attr, recorder(originals[(module, attr)], key))
-        for name in names:
+        for module, attr, key, _ in wrappers():
+            originals.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, recorder(getattr(module, attr), key))
+        for name in ("PUDXES", "REYMAL"):
             current[0] = name
-            pt.MolecularSystem.load_file(structure(name)).system_to_molecule().full_analysis(
-                device="cuda"
-            )
+            molecule(name).full_analysis()
+        current[0] = SWEEP_LABEL
+        pt.DLPOLY(synth_history(SWEEP_FRAMES)).analysis_batched(
+            frames=list(range(SWEEP_CHUNK)), swap_atoms={"he": "H"}, forcefield="OPLS",
+            batch_size=SWEEP_CHUNK,
+        )
     finally:
-        for (module, attr), fn in originals.items():
+        for module, attr, fn in originals:
             setattr(module, attr, fn)
     return seen
 
 
-def time_ms(fn, reps: int = 25) -> float:
-    """Warm median of one call, CUDA events."""
-    for _ in range(3):
-        fn()
+def time_ms(fn) -> float:
+    """Warm median of one call, CUDA events; 3 to 25 repetitions."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    reps = int(min(25, max(3, 0.5 / max(once, 1e-6))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -177,13 +254,42 @@ def time_ms(fn, reps: int = 25) -> float:
     return float(np.median(times))
 
 
+#: per kernel: the argument whose leading axis is the lane (frame) axis,
+#: and how many lanes one plain call takes (the plain versions hold
+#: (lanes, rays, steps or atoms, ...) tensors, too large for a whole
+#: sweep chunk at once; lanes are independent, so slices are exact)
+PLAIN_LANES = {
+    "ray_exit": (1, 128), "path_sweep": (2, 128), "fine_path": (2, 128),
+    "dbscan": (0, 128), "lbfgsb_stable": (0, 1 << 20), "nm_xy": (0, 1024),
+}
+
+
+def plain_call(key, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, run on slices of the lane axis when a
+    call holds more lanes than :data:`PLAIN_LANES` allows."""
+    arg, lanes = PLAIN_LANES[key]
+    b = args[arg].shape[0]
+    if b <= lanes:
+        return fn(*args, **kwargs)
+    parts = []
+    for lo in range(0, b, lanes):
+        part = tuple(
+            a[lo : lo + lanes] if torch.is_tensor(a) and a.ndim and a.shape[0] == b else a
+            for a in args
+        )
+        parts.append(fn(*part, **kwargs))
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def _as(args, dtype):
     return tuple(
         a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a for a in args
     )
 
 
-def compare_ray_exit(args, dtype):
+def compare_ray_exit(args, kwargs, dtype):
     from pywindow_torch.ops import ray_kernels
 
     unit, rel, vdw, origin, want_exit = _as(args, dtype)
@@ -192,7 +298,7 @@ def compare_ray_exit(args, dtype):
     # |u| = 1 (a float32 |u| is 1 only to ~1e-7)
     unit = unit / torch.sqrt((unit * unit).sum(-1, keepdim=True))
     hk, ek = ray_kernels.ray_exit_cuda(unit, rel, vdw, origin, want_exit)
-    hp, ep = ray_kernels.ray_exit_plain(unit, rel, vdw, origin, want_exit)
+    hp, ep = plain_call("ray_exit", ray_kernels.ray_exit_plain, unit, rel, vdw, origin, want_exit)
     torch.cuda.synchronize()
     flips = hk != hp
     if dtype == torch.float64:
@@ -203,12 +309,12 @@ def compare_ray_exit(args, dtype):
     # float32: the kernel's front test is the algebraic form of the plain
     # version's, so rays within rounding of tangency may flip
     n_flip = int(flips.sum())
-    check(n_flip <= 0.005 * len(hk), f"ray_exit f32: {n_flip} of {len(hk)} rays flip")
+    check(n_flip <= 0.005 * hk.numel(), f"ray_exit f32: {n_flip} of {hk.numel()} rays flip")
     if n_flip:
-        u64, r64, v64, o64, _ = _as(args, torch.float64)
-        t_ca = u64 @ r64.T
-        perp = r64[None] - t_ca[..., None] * u64[:, None]
-        under = v64[None] ** 2 - (perp * perp).sum(-1)
+        u64, r64, v64, _, _ = _as(args, torch.float64)
+        t_ca = (u64[..., :, None, :] * r64[..., None, :, :]).sum(-1)
+        perp = r64[..., None, :, :] - t_ca[..., None] * u64[..., :, None, :]
+        under = v64[..., None, :] ** 2 - (perp * perp).sum(-1)
         margin = under.abs().amin(-1)[flips]
         check(bool((margin <= 1e-4).all()), "ray_exit f32: a flipped ray is not tangent")
     both = hk & hp & torch.isfinite(ek)
@@ -217,137 +323,577 @@ def compare_ray_exit(args, dtype):
     return err
 
 
-def compare_path_sweep(args, dtype):
-    from pywindow_torch.ops import ray_kernels
-
+def _compare_sweep(name, kernel, plain, args, dtype):
     vectors, chunks, coords, vdw, max_steps = _as(args, dtype)
-    ok_k, pos_k, c_k = ray_kernels.path_sweep_cuda(vectors, chunks, coords, vdw, max_steps)
-    ok_p, pos_p, c_p = ray_kernels.path_sweep_plain(vectors, chunks, coords, vdw, max_steps)
+    ok_k, pos_k, c_k = kernel(vectors, chunks, coords, vdw, max_steps)
+    ok_p, pos_p, c_p = plain_call(name, plain, vectors, chunks, coords, vdw, max_steps)
     torch.cuda.synchronize()
-    check(torch.equal(ok_k, ok_p), f"path_sweep {dtype}: ok differs")
-    check(torch.equal(pos_k, pos_p), f"path_sweep {dtype}: argmin step differs")
+    check(torch.equal(ok_k, ok_p), f"{name} {dtype}: ok differs")
+    check(torch.equal(pos_k, pos_p), f"{name} {dtype}: argmin step differs")
     err = float((c_k - c_p).abs().max())
-    check(err <= (1e-9 if dtype == torch.float64 else 1e-4), f"path_sweep {dtype}: cmin differs by {err}")
+    check(err <= (1e-9 if dtype == torch.float64 else 1e-4), f"{name} {dtype}: cmin differs by {err}")
     return err
 
 
-def compare_dbscan(args, dtype):
+def compare_path_sweep(args, kwargs, dtype):
+    from pywindow_torch.ops import ray_kernels
+
+    return _compare_sweep(
+        "path_sweep", ray_kernels.path_sweep_cuda, ray_kernels.path_sweep_plain, args, dtype
+    )
+
+
+def compare_fine_path(args, kwargs, dtype):
+    from pywindow_torch.ops import ray_kernels
+
+    return _compare_sweep(
+        "fine_path", ray_kernels.fine_path_cuda, ray_kernels.fine_path_plain, args, dtype
+    )
+
+
+def compare_dbscan(args, kwargs, dtype):
     from pywindow_torch.ops import cluster, cluster_kernels
 
     points, valid, eps, min_samples, max_clusters = _as(args, dtype)
     labels_k = cluster_kernels.dbscan_labels_cuda(points, valid, eps, min_samples, max_clusters)
-    labels_p, _ = cluster.dbscan(points, valid, eps, min_samples, max_clusters)
+    labels_p, _ = plain_call("dbscan", cluster.dbscan, points, valid, eps, min_samples, max_clusters)
     torch.cuda.synchronize()
     check(torch.equal(labels_k, labels_p), f"dbscan {dtype}: labels differ")
     return 0.0
 
 
-def phase_kernels() -> dict[str, dict]:
-    from pywindow_torch.ops import cluster, cluster_kernels, ray_kernels
+def _compare_lanes(name, x_k, f_k, cap_k, x_p, f_p, cap_p):
+    """x within 1e-6 Å and equal capped flags on every lane; a lane
+    outside 1e-6 passes only on a tie of the objective to 1e-9."""
+    check(torch.equal(cap_k, cap_p), f"{name}: capped flags differ")
+    dx = (x_k - x_p).abs().amax(-1)
+    off = dx > 1e-6
+    for i in torch.nonzero(off).flatten().tolist():
+        df = float((f_k[i] - f_p[i]).abs())
+        print(f"  {name} lane {i}: |dx| {float(dx[i]):.3e} A, |df| {df:.3e} (objective tie)")
+        check(df <= 1e-9, f"{name} lane {i}: x differs by {float(dx[i])} and f by {df}")
+    return float(dx[~off].max()) if bool((~off).any()) else 0.0
 
-    seen = record_inputs(["PUDXES", "REYMAL"])
-    compare = {
-        "ray_exit": compare_ray_exit,
-        "path_sweep": compare_path_sweep,
-        "dbscan": compare_dbscan,
-    }
-    kernel_fn = {
-        "ray_exit": ray_kernels.ray_exit_cuda,
-        "path_sweep": ray_kernels.path_sweep_cuda,
-        "dbscan": cluster_kernels.dbscan_labels_cuda,
-    }
-    plain_fn = {
-        "ray_exit": ray_kernels.ray_exit_plain,
-        "path_sweep": ray_kernels.path_sweep_plain,
-        "dbscan": cluster.dbscan,
-    }
+
+def compare_lbfgsb(args, kwargs, dtype):
+    from pywindow_torch.ops import lbfgsb_kernels
+
+    x_k, f_k, _, _, cap_k = lbfgsb_kernels.lbfgsb_stable_flat_cuda(*args, **kwargs)
+    x_p, f_p, _, _, cap_p = plain_call(
+        "lbfgsb_stable", lbfgsb_kernels.lbfgsb_stable_flat_plain, *args, **kwargs
+    )
+    torch.cuda.synchronize()
+    return _compare_lanes("lbfgsb_stable", x_k, f_k, cap_k, x_p, f_p, cap_p)
+
+
+def compare_nm(args, kwargs, dtype):
+    from pywindow_torch.ops import nm_kernels
+
+    xy_k, f_k, cap_k = nm_kernels.nm_xy_flat_cuda(*args, **kwargs)
+    xy_p, f_p, cap_p = plain_call("nm_xy", nm_kernels.nm_xy_flat_plain, *args, **kwargs)
+    torch.cuda.synchronize()
+    return _compare_lanes("nm_xy", xy_k, f_k, cap_k, xy_p, f_p, cap_p)
+
+
+COMPARE = {
+    "ray_exit": (compare_ray_exit, (torch.float64, torch.float32)),
+    "path_sweep": (compare_path_sweep, (torch.float64, torch.float32)),
+    "dbscan": (compare_dbscan, (torch.float64, torch.float32)),
+    "lbfgsb_stable": (compare_lbfgsb, (torch.float64,)),
+    "nm_xy": (compare_nm, (torch.float64,)),
+    "fine_path": (compare_fine_path, (torch.float64, torch.float32)),
+}
+
+
+def bound(key, args, kwargs, out) -> tuple[float, str]:
+    """The least time the card could take for one call: the larger of the
+    bytes the function must move (inputs read once, outputs written once)
+    over the HBM rate and the operations these inputs need over the peak
+    rate of their type.  Operation counts per (ray, atom), (ray, step,
+    atom), (point, point) or (evaluation, atom), a sqrt or a divide
+    counted as one operation; for the optimisers the evaluations are a
+    lower bound from each lane's iteration count (one line-search
+    evaluation per iteration) or from the grid size."""
+    t = [a for a in args if torch.is_tensor(a)]
+    dtype = t[0].dtype
+    in_bytes = sum(a.numel() * a.element_size() for a in t)
+    outs = [o for o in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(o)]
+    out_bytes = sum(o.numel() * o.element_size() for o in outs)
+    if key == "ray_exit":
+        b, p, _ = args[0].shape
+        ops = 21 * b * p * args[1].shape[1]
+    elif key in ("path_sweep", "fine_path"):
+        vectors, chunks, coords, _, max_steps = args
+        steps = torch.clamp_max(chunks.to(torch.int64) + 1, int(max_steps))
+        ops = 11 * int(steps.sum()) * coords.shape[1]
+    elif key == "dbscan":
+        b, k, _ = args[0].shape
+        ops = 9 * b * k * k
+    elif key == "lbfgsb_stable":
+        n, d = args[0].shape[1], args[3].shape[1]
+        nit = out[2].to(torch.int64)
+        per_eval = 11 + (11 + 20) + (11 + 11 + 20 * d)
+        lanes_evals = int((11 + 22 + 20 * d) * nit.numel() + per_eval * int(nit.sum()))
+        ops = n * lanes_evals
+    elif key == "nm_xy":
+        lanes, n = args[0].shape[0], args[0].shape[1]
+        ns = kwargs.get("brute_ns", 20)
+        ops = lanes * n * (12 + 22 * (ns * ns + 3))
+    else:
+        raise KeyError(key)
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    t_ops = ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels() -> dict[str, dict]:
+    seen = record_inputs()
+    fns = {key: (getattr(m, attr), plain) for m, attr, key, plain in wrappers()}
     record = {}
     for key, calls in seen.items():
         check(len(calls) > 0, f"{key}: the main path never reached the kernel")
+        compare, dtypes = COMPARE[key]
         worst = 0.0
-        shapes = set()
-        for system, args in calls:
-            for dtype in (torch.float32, torch.float64):
-                err = compare[key](args, dtype)
-                if dtype == torch.float32:
+        for _, args, kwargs in calls:
+            for dtype in dtypes:
+                err = compare(args, kwargs, dtype)
+                if dtype == dtypes[-1]:
                     worst = max(worst, err)
-            shapes.add((system,) + tuple(tuple(a.shape) for a in args if torch.is_tensor(a)))
-        timings = []
-        for system in ("PUDXES", "REYMAL"):
-            for args in [a for s, a in calls if s == system][:2]:
-                ms = time_ms(lambda a=args: kernel_fn[key](*a))
-                plain_ms = time_ms(lambda a=args: plain_fn[key](*a))
-                shape = [tuple(a.shape) for a in args if torch.is_tensor(a)][0]
-                timings.append((system, shape, ms, plain_ms))
+        kernel_fn, plain_fn = fns[key]
+        rows = []
+        for label in ("PUDXES", "REYMAL", SWEEP_LABEL):
+            picked = [c for c in calls if c[0] == label][:1]
+            for _, args, kwargs in picked:
+                ms = time_ms(lambda a=args, k=kwargs: kernel_fn(*a, **k))
+                plain_ms = time_ms(lambda a=args, k=kwargs: plain_call(key, plain_fn, *a, **k))
+                out = kernel_fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                bound_ms, bound_by = bound(key, args, kwargs, out)
+                shape = tuple(next(a for a in args if torch.is_tensor(a)).shape)
+                rows.append((label, shape, ms, plain_ms, bound_ms, bound_by))
                 print(
-                    f"  {key} {system} {shape} f32: kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms"
+                    f"  {key} {label} {shape} {args[0].dtype}: kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
                 )
-        print(f"kernel {key}: {len(calls)} main-path calls checked, f32 max abs err {worst:.3e}")
-        cc3 = timings[0]
-        record[key] = {"max_abs_err": worst, "ms": cc3[2], "plain_ms": cc3[3]}
+                if key == "lbfgsb_stable":
+                    nit = out[2].to(torch.int64)
+                    print(
+                        f"    iterations per lane: max {int(nit.max())}, "
+                        f"total {int(nit.sum())} over {nit.numel()} lanes"
+                    )
+        print(
+            f"kernel {key}: {len(calls)} main-path calls checked, "
+            f"max abs err {worst:.3e} ({dtypes[-1]})"
+        )
+        _, _, ms, plain_ms, bound_ms, bound_by = rows[0]  # the PUDXES single run
+        record[key] = {
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
     return record
 
 
-def phase_gate() -> None:
-    import pywindow_torch as pt
+# -- phases 4-6: the main paths ----------------------------------------------
 
-    for name, gold in GOLD.items():
-        gold = dict(gold)
-        tol = gold.pop("tol", 0.01)
-        t0 = time.perf_counter()
-        props = (
-            pt.MolecularSystem.load_file(structure(name))
-            .system_to_molecule()
-            .full_analysis(device="cuda")
+
+@contextlib.contextmanager
+def main_path(label: str, pipeline_calls: list):
+    """Launch counters at 0 before the path, every kernel launched after
+    it; each device-pipeline call's launches and peak memory recorded;
+    the plain optimiser loops refuse CUDA tensors meanwhile."""
+    from pywindow_torch.ops import (
+        _cuda,
+        analysis,
+        lbfgsb,
+        lbfgsb_kernels,
+        nm_kernels,
+        optim,
+        windows,
+    )
+
+    def refuse_cuda(fn, name):
+        def run(*args, **kwargs):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args + tuple(kwargs.values())):
+                raise AssertionError(f"{label}: the plain {name} ran on a CUDA tensor")
+            return fn(*args, **kwargs)
+
+        return run
+
+    patched = [
+        (analysis, "lbfgsb_minimize"), (windows, "lbfgsb_minimize"),
+        (windows, "brute_then_polish"), (lbfgsb_kernels, "lbfgsb_minimize_stable"),
+        (nm_kernels, "brute_then_polish"), (optim, "nelder_mead"),
+        (lbfgsb, "lbfgsb_minimize_stable"),
+    ]
+    run_pipeline = analysis.run_pipeline
+
+    def counted_pipeline(mols, sizes, cfg):
+        before = dict(_cuda.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_pipeline(mols, sizes, cfg)
+        torch.cuda.synchronize()
+        delta = {k: _cuda.LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+        pipeline_calls.append(
+            (label, mols.coords.shape[0], delta, torch.cuda.max_memory_allocated())
         )
-        seconds = time.perf_counter() - t0
-        errs = {}
-        if "pore" in gold:
-            errs["pore"] = abs(props["pore_diameter"]["diameter"] - gold["pore"])
-        if "pore_opt" in gold:
-            errs["pore_opt"] = abs(props["pore_diameter_opt"]["diameter"] - gold["pore_opt"])
-        if "avg" in gold:
-            errs["avg"] = abs(props["average_diameter"] - gold["avg"])
-        if "max" in gold:
-            errs["max"] = abs(props["maximum_diameter"]["diameter"] - gold["max"])
-        if "windows" in gold:
-            wins = props["windows"]["diameters"]
-            check(wins is not None, f"{name}: no windows")
-            wins = np.sort(np.asarray(wins, dtype=np.float64))
+        return out
+
+    saved = [(m, a, getattr(m, a)) for m, a in patched]
+    try:
+        for m, a, fn in saved:
+            setattr(m, a, refuse_cuda(fn, a))
+        analysis.run_pipeline = counted_pipeline
+        _cuda.LAUNCHES.clear()
+        yield
+        torch.cuda.synchronize()
+        launches = {k: _cuda.LAUNCHES[k] for k in KERNELS}
+        print(f"{label}: launches {json.dumps(launches)}")
+        for key, n in launches.items():
+            check(n > 0, f"{label}: {key} was not launched")
+        main_path.launches[label] = launches
+    finally:
+        analysis.run_pipeline = run_pipeline
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
+main_path.launches = {}
+
+
+def gate_errors(props, gold) -> dict[str, float]:
+    errs = {}
+    if "pore" in gold:
+        errs["pore"] = abs(props["pore_diameter"]["diameter"] - gold["pore"])
+    if "pore_opt" in gold:
+        errs["pore_opt"] = abs(props["pore_diameter_opt"]["diameter"] - gold["pore_opt"])
+    if "avg" in gold:
+        errs["avg"] = abs(props["average_diameter"] - gold["avg"])
+    if "max" in gold:
+        errs["max"] = abs(props["maximum_diameter"]["diameter"] - gold["max"])
+    if "windows" in gold:
+        wins = props["windows"]["diameters"]
+        check(wins is not None, "no windows")
+        wins = np.sort(np.asarray(wins, dtype=np.float64))
+        check(
+            len(wins) == len(gold["windows"]),
+            f"{len(wins)} windows, expected {len(gold['windows'])}",
+        )
+        errs["windows"] = float(np.abs(wins - np.sort(gold["windows"])).max())
+    return errs
+
+
+def check_finite(name: str, props: dict) -> None:
+    for key, value in props.items():
+        if key == "windows":
+            continue
+        vals = value.values() if isinstance(value, dict) else [value]
+        for v in vals:
             check(
-                len(wins) == len(gold["windows"]),
-                f"{name}: {len(wins)} windows, expected {len(gold['windows'])}",
+                bool(np.all(np.isfinite(np.asarray(v, dtype=np.float64)))),
+                f"{name}: {key} not finite",
             )
-            errs["windows"] = float(np.abs(wins - np.sort(gold["windows"])).max())
-        for key, value in props.items():
-            if key == "windows":
-                continue
-            vals = value.values() if isinstance(value, dict) else [value]
-            for v in vals:
-                check(bool(np.all(np.isfinite(np.asarray(v, dtype=np.float64)))), f"{name}: {key} not finite")
+
+
+def phase_gate() -> None:
+    for name, gold in GOLD.items():
+        t0 = time.perf_counter()
+        props = molecule(name).full_analysis()
+        seconds = time.perf_counter() - t0
+        errs = gate_errors(props, gold)
+        check_finite(name, props)
         worst = max(errs.values())
         print(
-            f"gate {name}: worst abs err {worst:.3e} A (tol {tol}) "
+            f"gate {name}: worst abs err {worst:.3e} A (tol {TOL}) "
             f"{json.dumps({k: float(v) for k, v in errs.items()})}, {seconds:.3f} s"
         )
-        check(worst < tol, f"{name}: error {worst} >= {tol}")
+        check(worst < TOL, f"{name}: error {worst} >= {TOL}")
+
+
+def phase_batched_gate() -> None:
+    from pywindow_torch.parallel import batch
+
+    m = molecule("PUDXES")
+    gold = {"pore": GOLD["PUDXES"]["pore"], "windows": GOLD["PUDXES"]["windows"]}
+    t0 = time.perf_counter()
+    res = batch.analyze_batch([(m.elements, m.coordinates)] * BATCH_GATE)
+    seconds = time.perf_counter() - t0
+    check(len(res) == BATCH_GATE, "batched gate: results missing")
+    worst = 0.0
+    for props in res:
+        check_finite("batched PUDXES", props)
+        worst = max(worst, max(gate_errors(props, gold).values()))
+    print(
+        f"batched gate: {BATCH_GATE} CC3 frames, worst abs err {worst:.3e} A "
+        f"(tol {TOL}), {seconds:.3f} s"
+    )
+    check(worst < TOL, f"batched gate: error {worst} >= {TOL}")
+
+
+def synth_history(n_frames: int) -> pathlib.Path:
+    """An n-frame HISTORY cycling the 20-frame CC3 fixture with monotone
+    timesteps rewritten (bench.py:201-227), under build/."""
+    out = ROOT / "build" / f"HISTORY_cc3_{n_frames}"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    lines = HISTORY.read_text().split("\n")
+    starts = [i for i, ln in enumerate(lines) if ln.startswith("timestep")]
+    header = "\n".join(lines[: starts[0]]) + "\n"
+    frames = []
+    for i, s in enumerate(starts):
+        e = starts[i + 1] if i + 1 < len(starts) else len(lines)
+        frames.append("\n".join(lines[s:e]).rstrip("\n") + "\n")
+    with out.open("w") as fh:
+        fh.write(header)
+        for k in range(n_frames):
+            head, _, body = frames[k % len(frames)].partition("\n")
+            parts = head.split()
+            parts[1] = str(25 * k)
+            fh.write(" ".join(parts) + "\n" + body)
+    return out
+
+
+def phase_sweep(pipeline_calls: list):
+    """The 4,320-frame sweep; returns the trajectory and the sampling
+    pin the sweep used (the largest frame's maximum diameter)."""
+    import pywindow_torch as pt
+
+    from pywindow_torch.parallel import batch
+    from pywindow_torch.profiling import METRICS
+
+    path = synth_history(SWEEP_FRAMES)
+    first = len(pipeline_calls)
+    before = dict(METRICS.stage_seconds)
+    pins = []
+    sweep_uniform = batch.sweep_uniform
+
+    def pinned(elements, coords, maxd, *args, **kwargs):
+        ref = kwargs.get("reference_max_diameter")
+        pins.append(float(np.max(maxd)) if ref is None else float(ref))
+        return sweep_uniform(elements, coords, maxd, *args, **kwargs)
+
+    t0 = time.perf_counter()
+    traj = pt.DLPOLY(path)
+    t_map = time.perf_counter() - t0
+    batch.sweep_uniform = pinned
+    try:
+        traj.analysis_batched(swap_atoms={"he": "H"}, forcefield="OPLS", batch_size=SWEEP_CHUNK)
+    finally:
+        batch.sweep_uniform = sweep_uniform
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(pins) == 1, f"sweep: {len(pins)} uniform sweeps, expected 1")
+    sweep_stages(before, t_map)
+    out = traj.analysis_output
+    check(len(out) == SWEEP_FRAMES, f"sweep: {len(out)} of {SWEEP_FRAMES} frames")
+    for frame, mols in out.items():
+        check_finite(f"sweep frame {frame}", mols["0"])
+        wins = mols["0"]["windows"]["diameters"]
+        check(wins is None or bool(np.all(np.isfinite(wins))), f"sweep frame {frame}: windows")
+    chunks = [c for c in pipeline_calls[first:] if c[1] == SWEEP_CHUNK]
+    check(len(chunks) == SWEEP_FRAMES // SWEEP_CHUNK, f"sweep: {len(chunks)} full chunks")
+    print(
+        f"sweep: {SWEEP_FRAMES} frames in {seconds:.3f} s = {SWEEP_FRAMES / seconds:.1f} frames/s "
+        f"(batch_size {SWEEP_CHUNK}, DLPOLY map + decode + analysis)"
+    )
+    for _, b, _, peak in pipeline_calls[first:]:
+        print(f"  sweep pipeline call: B={b}, peak device memory {peak / 2**30:.3f} GiB")
+    return traj, pins[0]
+
+
+def _windows_err(got, ref) -> float | None:
+    """Largest difference of the sorted window diameters, None when the
+    two runs found different numbers of windows."""
+    gw, rw = got["windows"]["diameters"], ref["windows"]["diameters"]
+    if gw is None or rw is None:
+        return 0.0 if gw is None and rw is None else None
+    if len(gw) != len(rw):
+        return None
+    return float(np.abs(np.sort(gw) - np.sort(rw)).max())
+
+
+def phase_sweep_samples(traj, pin: float) -> None:
+    """Eight distinct sweep frames against the single-frame path, outside
+    the sweep's launch count: pore_opt against ``full_analysis()``, the
+    windows against the same pipeline on the frame alone at the sweep's
+    sampling pin (``full_analysis()`` samples with the frame's own
+    maximum diameter, which may move a window by ~0.01 Å; that
+    difference is printed, not held)."""
+    from pywindow_torch.parallel import batch
+
+    check(len({f % 20 for f in SWEEP_SAMPLE}) == len(SWEEP_SAMPLE), "sample frames repeat")
+    fr = traj.get_frames(SWEEP_SAMPLE, swap_atoms={"he": "H"}, forcefield="OPLS")
+    worst = {"pore_opt": 0.0, "windows_at_pin": 0.0, "windows_own_sampling": 0.0}
+    for frame, molsys in fr.items():
+        mol = molsys.system_to_molecule()
+        single = mol.full_analysis()
+        at_pin = batch.analyze_batch(
+            [(mol.elements, mol.coordinates)], reference_max_diameter=pin
+        )[0]
+        got = traj.analysis_output[frame]["0"]
+        d_pore = abs(got["pore_diameter_opt"]["diameter"] - single["pore_diameter_opt"]["diameter"])
+        worst["pore_opt"] = max(worst["pore_opt"], d_pore)
+        err = _windows_err(got, at_pin)
+        check(err is not None, f"sweep frame {frame}: window count differs from the frame alone")
+        worst["windows_at_pin"] = max(worst["windows_at_pin"], err)
+        own = _windows_err(got, single)
+        if own is None:
+            print(f"  sweep frame {frame}: window count differs under its own sampling")
+        else:
+            worst["windows_own_sampling"] = max(worst["windows_own_sampling"], own)
+    print(
+        f"sweep vs the single-frame path, frames {SWEEP_SAMPLE} (pin {pin!r} A): "
+        f"{json.dumps(worst)} A"
+    )
+    check(
+        worst["pore_opt"] < TOL and worst["windows_at_pin"] < TOL,
+        "sweep: frames differ from the single-frame path",
+    )
+
+
+@contextlib.contextmanager
+def stage_timers(spans: dict):
+    """Time the analysis stages on the host, synchronising the card on
+    each side of a stage (the spans add up, nested ones excluded)."""
+    from pywindow_torch.ops import analysis, rays, windows
+
+    stages = [
+        (analysis, "optimise_pore_centre_res", "pore centre (lbfgsb_stable)"),
+        (windows, "_window_refine", "window refine (lbfgsb_stable z, nm_xy)"),
+        (rays, "fine_path_analysis", "fine sweep (fine_path)"),
+        (rays, "average_diameter", "average diameter (ray_exit)"),
+        (rays, "preanalysis_open", "pre-analysis, coarse sweep, DBSCAN"),
+        (rays, "path_analysis", "pre-analysis, coarse sweep, DBSCAN"),
+        (windows, "dbscan", "pre-analysis, coarse sweep, DBSCAN"),
+    ]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in stages]
+
+    def timed(fn, name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        return run
+
+    try:
+        for (m, a, fn), (_, _, name) in zip(saved, stages):
+            setattr(m, a, timed(fn, name))
+        yield
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
+def device_profile(fn) -> tuple[float, float, int]:
+    """(wall seconds, device-busy seconds, kernel launches) of one warm
+    call, from torch.profiler's kernel events: busy time is the union of
+    their intervals, so an event listed twice counts once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(
+        {
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+        }
+    )
+    busy_us, end = 0.0, -math.inf
+    for start, stop, _ in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return wall, busy_us * 1e-6, len(spans)
+
+
+def phase_profile(pin: float) -> None:
+    """Where a molecule's and a chunk's time goes: host stage spans of
+    one warm PUDXES and REYMAL molecule, the device's busy share and
+    kernel launches of one molecule and of one 1,440-frame chunk (at the
+    sweep's sampling pin)."""
+    from pywindow_torch.parallel import batch
+
+    for name in ("PUDXES", "REYMAL"):
+        mol = molecule(name)
+        mol.full_analysis()
+        spans: dict = {}
+        with stage_timers(spans):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            molecule(name).full_analysis()
+            torch.cuda.synchronize()
+            whole = time.perf_counter() - t0
+        rows = {"whole molecule": whole, **spans}
+        rows["other (eager torch, host)"] = whole - sum(spans.values())
+        for stage_name, sec in rows.items():
+            print(f"profile {name}: {stage_name}: {sec:.4f} s ({100 * sec / whole:.1f}%)")
+        wall, busy, launches = device_profile(lambda n=name: molecule(n).full_analysis())
+        print(
+            f"profile {name}: under torch.profiler {wall:.4f} s, device busy {busy:.4f} s "
+            f"({100 * busy / wall:.1f}%), {launches} kernel launches"
+        )
+    traj_frames = synth_history(SWEEP_FRAMES)
+    import pywindow_torch as pt
+
+    fr = pt.DLPOLY(traj_frames).get_frames(list(range(20)), swap_atoms={"he": "H"}, forcefield="OPLS")
+    systems = [(m.system["elements"], m.system["coordinates"]) for m in fr.values()]
+    chunk = [systems[k % 20] for k in range(SWEEP_CHUNK)]
+    wall, busy, launches = device_profile(
+        lambda: batch.analyze_batch(chunk, reference_max_diameter=pin)
+    )
+    print(
+        f"profile chunk of {SWEEP_CHUNK} CC3 frames (analyze_batch): {wall:.4f} s, "
+        f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%), {launches} kernel launches"
+    )
+
+
+def sweep_stages(before: dict, t_map: float) -> None:
+    """The sweep's host stage seconds (profiling.METRICS) since
+    ``before``, and the HISTORY map with its integrity check."""
+    from pywindow_torch.profiling import METRICS
+
+    spans = {"trajectory_map": t_map}
+    spans.update(
+        (k, v - before.get(k, 0.0))
+        for k, v in METRICS.stage_seconds.items()
+        if v - before.get(k, 0.0) > 0
+    )
+    print(f"sweep stages: {json.dumps({k: round(v, 4) for k, v in spans.items()})} s")
 
 
 def main() -> None:
     smi = phase_card()
     phase_build()
-    from pywindow_torch.ops import _cuda
-
     record = phase_kernels()
-    _cuda.LAUNCHES.clear()
+
+    calls: list = []
     t0 = time.perf_counter()
-    phase_gate()
-    torch.cuda.synchronize()
+    with main_path("gate", calls):
+        phase_gate()
     print(f"gate: 7 systems in {time.perf_counter() - t0:.2f} s")
-    launches = dict(_cuda.LAUNCHES)
-    for key in KERNELS:
-        check(launches.get(key, 0) > 0, f"{key}: no launch during the golden gate")
+    with main_path("batched gate", calls):
+        phase_batched_gate()
+    with main_path("sweep", calls):
+        traj, pin = phase_sweep(calls)
+    phase_sweep_samples(traj, pin)
+    phase_profile(pin)
+
+    per_call = {json.dumps(delta, sort_keys=True) for _, _, delta, _ in calls}
+    sizes = sorted({b for _, b, _, _ in calls})
+    print(f"launches per pipeline call over {len(calls)} calls (B in {sizes}): {sorted(per_call)}")
+    check(len(per_call) == 1, "launches per pipeline call depend on the batch")
+
+    launches = main_path.launches["sweep"]
     kernels = [
         {
             "name": key,
@@ -358,11 +904,14 @@ def main() -> None:
             "max_abs_err": record[key]["max_abs_err"],
             "ms": record[key]["ms"],
             "plain_ms": record[key]["plain_ms"],
+            "bound_ms": record[key]["bound_ms"],
+            "bound_by": record[key]["bound_by"],
+            "library_ms": None,
         }
         for key, (src, replaces) in KERNELS.items()
     ]
-    print(json.dumps({"kernels": kernels}))
     check(all(math.isfinite(k["ms"]) for k in kernels), "timings not finite")
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(
         json.dumps(

@@ -4,11 +4,16 @@
 field for field, so one package's config converts into the other's
 (see :func:`pywindow_torch.convert.config_from_dict`).
 
+Device policy: every entry point runs on the card (``device="cuda"``)
+unless the caller asks for the CPU, and raises when asked for a card
+that is not there (:func:`resolve_device`).
+
 Dtype policy (counterpart of ``pywindow_tpu.config.default_dtype``):
 float64 on the CPU, where the optimisers run in the scipy-parity
 "classic" mode; float32 on CUDA, where they run in the "stable"
-symbolic-difference mode.  ``PYWINDOW_TORCH_FORCE_F32=1`` forces
-float32 on the CPU too, so the stable path can be tested without a card.
+symbolic-difference mode, as the optimiser kernels.
+``PYWINDOW_TORCH_FORCE_F32=1`` forces float32 on the CPU too, so the
+stable path can be tested without a card.
 """
 
 from __future__ import annotations
@@ -17,6 +22,19 @@ import dataclasses
 import os
 
 import torch
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point runs on; raises when the card is asked
+    for and none is available (there is no fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        msg = (
+            "pywindow_torch: no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+        raise RuntimeError(msg)
+    return dev
 
 
 def default_dtype(device: torch.device | str = "cpu") -> torch.dtype:
@@ -62,7 +80,7 @@ def window_opt_mode(dtype: torch.dtype) -> str:
 
 
 def pad_multiple() -> int:
-    """Atom-axis padding granularity of :func:`~pywindow_torch.ops.encoding.encode`.
+    """Atom-axis padding granularity of :func:`~pywindow_torch.ops.encoding.encode_batch`.
 
     The CUDA kernels take any atom count, so padding only has to keep
     the port's encoding identical to the JAX package's (8), which the

@@ -1,9 +1,9 @@
 // PyTorch bindings of the pywindow_torch CUDA kernels: the only source
 // that includes PyTorch's headers (they dominate the build time).  The
-// Python wrappers in pywindow_torch/ops/{ray,cluster}_kernels.py check
-// device, dtype, shape and contiguity before calling these; each binding
-// launches on the current stream of the tensors' device and checks the
-// launch.
+// Python wrappers in pywindow_torch/ops/{ray,cluster,lbfgsb,nm}_kernels.py
+// check device, dtype, shape and contiguity before calling these; each
+// binding launches on the current stream of the tensors' device and
+// checks the launch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -20,13 +20,16 @@ void* current_stream(const at::Tensor& t) {
 
 uint8_t* bytes(at::Tensor& t) { return static_cast<uint8_t*>(t.data_ptr()); }
 
+int dim(const at::Tensor& t, int i) { return static_cast<int>(t.size(i)); }
+
 template <typename T>
 void ray_exit_t(const at::Tensor& unit, const at::Tensor& rel,
                 const at::Tensor& vdw, const at::Tensor& origin,
                 at::Tensor& any_front, at::Tensor& max_exit, bool want_exit) {
   pw::ray_exit(unit.data_ptr<T>(), rel.data_ptr<T>(), vdw.data_ptr<T>(),
                origin.data_ptr<T>(), bytes(any_front), max_exit.data_ptr<T>(),
-               unit.size(0), rel.size(0), want_exit, current_stream(unit));
+               dim(unit, 0), dim(unit, 1), dim(rel, 1), want_exit,
+               current_stream(unit));
 }
 
 void ray_exit(const at::Tensor& unit, const at::Tensor& rel,
@@ -41,16 +44,16 @@ void ray_exit(const at::Tensor& unit, const at::Tensor& rel,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-template <typename T>
-void path_sweep_t(const at::Tensor& vectors, const at::Tensor& chunks,
-                  const at::Tensor& coords, const at::Tensor& vdw,
-                  at::Tensor& ok, at::Tensor& pos, at::Tensor& cmin,
-                  int64_t max_steps) {
-  pw::path_sweep(vectors.data_ptr<T>(), chunks.data_ptr<int32_t>(),
-                 coords.data_ptr<T>(), vdw.data_ptr<T>(), bytes(ok),
-                 pos.data_ptr<int32_t>(), cmin.data_ptr<T>(), vectors.size(0),
-                 coords.size(0), static_cast<int>(max_steps),
-                 current_stream(vectors));
+// path_sweep and fine_path share one signature: vectors (B,R,3),
+// chunks (B,R), coords (B,N,3), vdw (B,N) -> ok, pos, cmin (B,R)
+template <typename T, typename Fn>
+void sweep_t(Fn fn, const at::Tensor& vectors, const at::Tensor& chunks,
+             const at::Tensor& coords, const at::Tensor& vdw, at::Tensor& ok,
+             at::Tensor& pos, at::Tensor& cmin, int64_t max_steps) {
+  fn(vectors.data_ptr<T>(), chunks.data_ptr<int32_t>(), coords.data_ptr<T>(),
+     vdw.data_ptr<T>(), bytes(ok), pos.data_ptr<int32_t>(), cmin.data_ptr<T>(),
+     dim(vectors, 0), dim(vectors, 1), dim(coords, 1),
+     static_cast<int>(max_steps), current_stream(vectors));
 }
 
 void path_sweep(const at::Tensor& vectors, const at::Tensor& chunks,
@@ -59,9 +62,29 @@ void path_sweep(const at::Tensor& vectors, const at::Tensor& chunks,
                 int64_t max_steps) {
   const c10::cuda::CUDAGuard guard(vectors.device());
   if (vectors.scalar_type() == at::kDouble) {
-    path_sweep_t<double>(vectors, chunks, coords, vdw, ok, pos, cmin, max_steps);
+    sweep_t<double>(
+        [](auto... a) { pw::path_sweep(a...); }, vectors, chunks, coords, vdw,
+        ok, pos, cmin, max_steps);
   } else {
-    path_sweep_t<float>(vectors, chunks, coords, vdw, ok, pos, cmin, max_steps);
+    sweep_t<float>(
+        [](auto... a) { pw::path_sweep(a...); }, vectors, chunks, coords, vdw,
+        ok, pos, cmin, max_steps);
+  }
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void fine_path(const at::Tensor& vectors, const at::Tensor& chunks,
+               const at::Tensor& coords, const at::Tensor& vdw, at::Tensor ok,
+               at::Tensor pos, at::Tensor cmin, int64_t max_steps) {
+  const c10::cuda::CUDAGuard guard(vectors.device());
+  if (vectors.scalar_type() == at::kDouble) {
+    sweep_t<double>(
+        [](auto... a) { pw::fine_path(a...); }, vectors, chunks, coords, vdw,
+        ok, pos, cmin, max_steps);
+  } else {
+    sweep_t<float>(
+        [](auto... a) { pw::fine_path(a...); }, vectors, chunks, coords, vdw,
+        ok, pos, cmin, max_steps);
   }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -73,7 +96,7 @@ void dbscan_t(const at::Tensor& points, const at::Tensor& valid,
   pw::dbscan(points.data_ptr<T>(), static_cast<const uint8_t*>(valid.data_ptr()),
              eps.data_ptr<T>(), adj.data_ptr<int32_t>(),
              scratch.data_ptr<int32_t>(), labels.data_ptr<int32_t>(),
-             points.size(0), points.size(1), static_cast<int>(min_samples),
+             dim(points, 0), dim(points, 1), static_cast<int>(min_samples),
              static_cast<int>(max_clusters), current_stream(points));
 }
 
@@ -91,10 +114,51 @@ void dbscan(const at::Tensor& points, const at::Tensor& valid,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void lbfgsb_stable(const at::Tensor& coords, const at::Tensor& vdw,
+                   const at::Tensor& origin, const at::Tensor& x0,
+                   const at::Tensor& lower, const at::Tensor& upper,
+                   at::Tensor x, at::Tensor fun, at::Tensor nit,
+                   at::Tensor converged, at::Tensor capped, double sign,
+                   int64_t maxiter, int64_t m, int64_t maxls, double pgtol,
+                   double factr, double fd_step) {
+  const c10::cuda::CUDAGuard guard(coords.device());
+  const pw::LbfgsbParams params{sign,
+                                static_cast<int>(maxiter),
+                                static_cast<int>(m),
+                                static_cast<int>(maxls),
+                                pgtol,
+                                factr,
+                                fd_step};
+  pw::lbfgsb_stable(coords.data_ptr<double>(), vdw.data_ptr<double>(),
+                    origin.data_ptr<double>(), x0.data_ptr<double>(),
+                    lower.data_ptr<double>(), upper.data_ptr<double>(),
+                    x.data_ptr<double>(), fun.data_ptr<double>(),
+                    nit.data_ptr<int32_t>(), bytes(converged), bytes(capped),
+                    dim(coords, 0), dim(coords, 1), dim(x0, 1), params,
+                    current_stream(coords));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void nm_xy(const at::Tensor& coords, const at::Tensor& vdw,
+           const at::Tensor& zanchor, const at::Tensor& half, at::Tensor xy,
+           at::Tensor f, at::Tensor capped, int64_t brute_ns, int64_t maxiter,
+           double xatol, double fatol) {
+  const c10::cuda::CUDAGuard guard(coords.device());
+  pw::nm_xy(coords.data_ptr<double>(), vdw.data_ptr<double>(),
+            zanchor.data_ptr<double>(), half.data_ptr<double>(),
+            xy.data_ptr<double>(), f.data_ptr<double>(), bytes(capped),
+            dim(coords, 0), dim(coords, 1), static_cast<int>(brute_ns),
+            static_cast<int>(maxiter), xatol, fatol, current_stream(coords));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ray_exit", &ray_exit, "per-ray front hit and farthest exit");
   m.def("path_sweep", &path_sweep, "per-ray clearance sweep");
+  m.def("fine_path", &fine_path, "window-slot fine clearance sweep");
   m.def("dbscan", &dbscan, "DBSCAN labels per frame");
+  m.def("lbfgsb_stable", &lbfgsb_stable, "stable L-BFGS-B per lane");
+  m.def("nm_xy", &nm_xy, "window-xy brute grid + Nelder-Mead per lane");
 }

@@ -3,11 +3,13 @@
 // Each launches its kernel on the given stream (a cudaStream_t passed as
 // void*) and returns without synchronising or checking; the caller
 // (bindings.cpp) checks the launch with C10_CUDA_KERNEL_LAUNCH_CHECK().
-// Every kernel exists for float and for double, so that the double
+// The ray kernels exist for float and for double, so that the double
 // version can be held against its plain PyTorch version to the last
-// digits.  Pointers are device pointers to contiguous arrays; flags are
-// one byte per element (a torch.bool tensor).  This header includes no
-// CUDA or PyTorch header.
+// digits; the optimiser kernels run in double only (their state is
+// config.OPT_DTYPE).  Pointers are device pointers to contiguous arrays;
+// flags are one byte per element (a torch.bool tensor).  Every kernel
+// takes a leading frame (or lane) axis B.  This header includes no CUDA
+// or PyTorch header.
 #pragma once
 
 #include <cstdint>
@@ -17,25 +19,37 @@ namespace pw {
 // "no value" sentinel of the ray reductions (1e30, as in the JAX package)
 constexpr double kBig = 1.0e30;
 
-// ray_exit.cu: per ray (any_front, max_exit); unit (P,3), rel (N,3),
-// vdw (N,), origin (3,) -> any_front (P,), max_exit (P,)
+// ray_exit.cu: per ray (any_front, max_exit) of B frames; unit (B,P,3),
+// rel (B,N,3), vdw (B,N), origin (B,3) -> any_front (B,P), max_exit (B,P)
 void ray_exit(const float* unit, const float* rel, const float* vdw,
-              const float* origin, uint8_t* any_front, float* max_exit, int P,
-              int N, bool want_exit, void* stream);
+              const float* origin, uint8_t* any_front, float* max_exit, int B,
+              int P, int N, bool want_exit, void* stream);
 void ray_exit(const double* unit, const double* rel, const double* vdw,
               const double* origin, uint8_t* any_front, double* max_exit,
-              int P, int N, bool want_exit, void* stream);
+              int B, int P, int N, bool want_exit, void* stream);
 
-// path_sweep.cu: per ray (ok, first-argmin step, min clearance);
-// vectors (P,3), chunks (P,) int32, coords (N,3), vdw (N,)
+// path_sweep.cu: per ray (ok, first-argmin step, min clearance) of B
+// frames; vectors (B,P,3), chunks (B,P) int32, coords (B,N,3), vdw (B,N)
 void path_sweep(const float* vectors, const int32_t* chunks,
                 const float* coords, const float* vdw, uint8_t* ok,
-                int32_t* pos, float* cmin, int P, int N, int max_steps,
+                int32_t* pos, float* cmin, int B, int P, int N, int max_steps,
                 void* stream);
 void path_sweep(const double* vectors, const int32_t* chunks,
                 const double* coords, const double* vdw, uint8_t* ok,
-                int32_t* pos, double* cmin, int P, int N, int max_steps,
-                void* stream);
+                int32_t* pos, double* cmin, int B, int P, int N,
+                int max_steps, void* stream);
+
+// fine_path.cu: the same reduction for the W window-slot rays of B
+// frames at the fine increment; vectors (B,W,3), chunks (B,W) int32,
+// coords (B,N,3), vdw (B,N) -> ok, pos, cmin (B,W)
+void fine_path(const float* vectors, const int32_t* chunks,
+               const float* coords, const float* vdw, uint8_t* ok,
+               int32_t* pos, float* cmin, int B, int W, int N, int max_steps,
+               void* stream);
+void fine_path(const double* vectors, const int32_t* chunks,
+               const double* coords, const double* vdw, uint8_t* ok,
+               int32_t* pos, double* cmin, int B, int W, int N, int max_steps,
+               void* stream);
 
 // dbscan.cu: labels (B,K) int32 of B point sets (B,K,3) with validity
 // (B,K) and eps (B,); adj (B,K,ceil(K/32)) and scratch (B,3,K) int32 are
@@ -46,5 +60,34 @@ void dbscan(const float* points, const uint8_t* valid, const float* eps,
 void dbscan(const double* points, const uint8_t* valid, const double* eps,
             int32_t* adj, int32_t* scratch, int32_t* labels, int B, int K,
             int min_samples, int max_clusters, void* stream);
+
+// lbfgsb_stable.cu: the stable L-BFGS-B per lane, d = 3 (pore centre,
+// identity axis embedding) or d = 1 (window z, z-axis embedding).
+// coords (B,N,3), vdw (B,N), origin (B,3), x0/lower/upper (B,d) ->
+// x (B,d), fun (B,), nit (B,) int32, converged (B,), capped (B,).
+struct LbfgsbParams {
+  double sign;  // objective = sign * 2 * clearance
+  int maxiter;
+  int m;  // history pairs, <= 10
+  int maxls;
+  double pgtol;
+  double factr;
+  double fd_step;
+};
+void lbfgsb_stable(const double* coords, const double* vdw,
+                   const double* origin, const double* x0,
+                   const double* lower, const double* upper, double* x,
+                   double* fun, int32_t* nit, uint8_t* converged,
+                   uint8_t* capped, int B, int N, int d,
+                   const LbfgsbParams& params, void* stream);
+
+// nm_xy.cu: the window-xy brute grid (brute_ns x brute_ns, inclusive,
+// x outer, first minimum) and the Nelder-Mead polish per lane; coords
+// (L,N,3) rotated molecules, vdw (L,N), zanchor (L,), half (L,) ->
+// xy (L,2), f (L,), capped (L,).
+void nm_xy(const double* coords, const double* vdw, const double* zanchor,
+           const double* half, double* xy, double* f, uint8_t* capped, int L,
+           int N, int brute_ns, int maxiter, double xatol, double fatol,
+           void* stream);
 
 }  // namespace pw

@@ -1,4 +1,4 @@
-// path_sweep: the coarse ray walk.  Per ray, clearance
+// path_sweep: the coarse ray walk.  Per ray of each frame, clearance
 // min_i(|q - x_i| - vdw_i) at the probe points q = (l / chunks) * v for
 // l = 0 .. min(chunks + 1, max_steps) - 1, reduced to
 //   ok   = every probe clearance > 0,
@@ -10,23 +10,26 @@
 // utilities.py:1100-1129.  Padded atoms follow the MolArrays convention
 // (coordinates ~1e6, vdW 0) and cannot win the minimum, so no mask.
 //
-// Design: one warp per ray, atoms strided over the 32 lanes, a
-// warp-shuffle min per step, then the running (ok, pos, cmin) over steps
-// in registers.  Distances use the difference form |q - x| as the plain
-// dense path does (rays.py:336-351 of the JAX package); the TPU kernel's
-// Gram form was a trade for the TPU's vector unit that this card does
-// not need, and the difference form lets the kernel match its plain
-// version exactly in float64.  Work per ray is steps x atoms x ~10 flops
-// with the atoms read from L1/L2 (a molecule is a few KB), so the kernel
-// is bound by arithmetic and, at the main path's few hundred rays, by
-// occupancy.
+// Design: grid (ray tiles of 8, frames); the frame's atoms are staged in
+// shared memory once per block, then one warp walks one ray: atoms
+// strided over the 32 lanes, a warp-shuffle min per step, the running
+// (ok, pos, cmin) over steps in registers.  Distances use the difference
+// form |q - x| as the plain dense path does (rays.py:336-351 of the JAX
+// package); the TPU kernel's Gram form was a trade for the TPU's vector
+// unit that this card does not need, and the difference form lets the
+// kernel match its plain version exactly in float64.  Work per ray is
+// steps x atoms x ~10 flops with the atoms in shared memory, so the
+// kernel is bound by arithmetic (a few hundred rays of one molecule by
+// occupancy; a batch of frames fills the card).
 #include <cuda_runtime.h>
 
 #include "kernels.h"
+#include "sweep.cuh"
 
 namespace {
 
 constexpr int PATH_SWEEP_THREADS = 256;  // 8 rays per block
+constexpr int RAYS_PER_BLOCK = PATH_SWEEP_THREADS / 32;
 
 template <typename T>
 __global__ void path_sweep_kernel(const T* __restrict__ vectors,
@@ -37,9 +40,19 @@ __global__ void path_sweep_kernel(const T* __restrict__ vectors,
                                   int32_t* __restrict__ pos_out,
                                   T* __restrict__ cmin_out, int P, int N,
                                   int max_steps) {
-  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  extern __shared__ unsigned char smem_raw[];
+  T* sx = reinterpret_cast<T*>(smem_raw);
+  T* sy = sx + N;
+  T* sz = sy + N;
+  T* sr = sz + N;
+  const int frame = blockIdx.y;
+  pw::stage_atoms(coords + static_cast<size_t>(frame) * N * 3,
+                  vdw + static_cast<size_t>(frame) * N, N, sx, sy, sz, sr);
+
+  const int p = blockIdx.x * RAYS_PER_BLOCK + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (ray >= P) return;  // whole warps only: no block-level sync below
+  if (p >= P) return;  // whole warps only: no block-level sync below
+  const size_t ray = static_cast<size_t>(frame) * P + p;
   const T v0 = vectors[3 * ray];
   const T v1 = vectors[3 * ray + 1];
   const T v2 = vectors[3 * ray + 2];
@@ -52,17 +65,8 @@ __global__ void path_sweep_kernel(const T* __restrict__ vectors,
   T cmin = T(pw::kBig);
   for (int l = 0; l < n_steps; ++l) {
     const T frac = T(l) / chf;
-    const T q0 = v0 * frac, q1 = v1 * frac, q2 = v2 * frac;
-    T c = T(pw::kBig);
-    for (int a = lane; a < N; a += 32) {
-      const T d0 = q0 - coords[3 * a];
-      const T d1 = q1 - coords[3 * a + 1];
-      const T d2 = q2 - coords[3 * a + 2];
-      c = min(c, sqrt(d0 * d0 + d1 * d1 + d2 * d2) - vdw[a]);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      c = min(c, __shfl_xor_sync(0xffffffffu, c, off));
-    }
+    const T c = pw::warp_clearance(v0 * frac, v1 * frac, v2 * frac, sx, sy,
+                                   sz, sr, N, lane);
     ok = ok && (c > T(0));
     if (c < cmin) {
       cmin = c;
@@ -79,12 +83,13 @@ __global__ void path_sweep_kernel(const T* __restrict__ vectors,
 template <typename T>
 void launch_path_sweep(const T* vectors, const int32_t* chunks,
                        const T* coords, const T* vdw, uint8_t* ok,
-                       int32_t* pos, T* cmin, int P, int N, int max_steps,
-                       void* stream) {
-  if (P <= 0) return;
-  const int rays_per_block = PATH_SWEEP_THREADS / 32;
-  const int blocks = (P + rays_per_block - 1) / rays_per_block;
-  path_sweep_kernel<T><<<blocks, PATH_SWEEP_THREADS, 0,
+                       int32_t* pos, T* cmin, int B, int P, int N,
+                       int max_steps, void* stream) {
+  if (B <= 0 || P <= 0) return;
+  const size_t smem = pw::sweep_smem_bytes<T>(N);
+  pw::allow_smem(path_sweep_kernel<T>, smem);
+  const dim3 grid((P + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK, B);
+  path_sweep_kernel<T><<<grid, PATH_SWEEP_THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       vectors, chunks, coords, vdw, ok, pos, cmin, P, N, max_steps);
 }
@@ -93,16 +98,16 @@ void launch_path_sweep(const T* vectors, const int32_t* chunks,
 
 void pw::path_sweep(const float* vectors, const int32_t* chunks,
                     const float* coords, const float* vdw, uint8_t* ok,
-                    int32_t* pos, float* cmin, int P, int N, int max_steps,
-                    void* stream) {
-  launch_path_sweep(vectors, chunks, coords, vdw, ok, pos, cmin, P, N,
+                    int32_t* pos, float* cmin, int B, int P, int N,
+                    int max_steps, void* stream) {
+  launch_path_sweep(vectors, chunks, coords, vdw, ok, pos, cmin, B, P, N,
                     max_steps, stream);
 }
 
 void pw::path_sweep(const double* vectors, const int32_t* chunks,
                     const double* coords, const double* vdw, uint8_t* ok,
-                    int32_t* pos, double* cmin, int P, int N, int max_steps,
-                    void* stream) {
-  launch_path_sweep(vectors, chunks, coords, vdw, ok, pos, cmin, P, N,
+                    int32_t* pos, double* cmin, int B, int P, int N,
+                    int max_steps, void* stream) {
+  launch_path_sweep(vectors, chunks, coords, vdw, ok, pos, cmin, B, P, N,
                     max_steps, stream);
 }

@@ -1,17 +1,19 @@
-// ray_exit: per ray, does any vdW sphere cross it in front of the
-// origin, and the farthest front exit distance |p1| (-1e30 if none).
+// ray_exit: per ray of each frame, does any vdW sphere cross it in front
+// of the origin, and the farthest front exit distance |p1| (-1e30 if
+// none).
 //
 // Replaces pywindow_tpu/ops/pallas_kernels.py::ray_exit_pallas and its
 // layout variant _ray_exit_pallas_wide (one kernel, no atom limit).
 // Reference behaviour: utilities.py:1132-1161 (vector_preanalysis) and
 // :1556-1583 (vector_analysis_reversed).
 //
-// Design: one thread per ray; the molecule (rel, vdw) is staged through
-// shared memory in tiles of RAY_EXIT_TILE atoms, so any atom count
-// works.  Per (ray, atom) pair the work is ~20 flops and no memory
-// traffic beyond the shared tile, so the kernel is bound by arithmetic
-// (and, at the main path's P ~ 800-950 rays, by having only a handful
-// of blocks in flight on the card's 132 SMs).
+// Design: grid (ray tiles, frames); one thread per ray; the frame's
+// molecule (rel, vdw) is staged through shared memory in tiles of
+// RAY_EXIT_TILE atoms, so any atom count works.  Per (ray, atom) pair
+// the work is ~20 flops and no memory traffic beyond the shared tile, so
+// the kernel is bound by arithmetic (and, for one molecule at the main
+// path's P ~ 800-950 rays, by having only a handful of blocks in flight
+// on the card's 132 SMs; a batch of frames fills the card).
 //
 // Arithmetic, as in the TPU kernel: the perpendicular distance in the
 // stable form rel - t_ca*u (the Gram form |rel|^2 - t_ca^2 cancels near
@@ -29,16 +31,24 @@ constexpr int RAY_EXIT_THREADS = 128;
 constexpr int RAY_EXIT_TILE = 128;
 
 template <typename T, bool WANT_EXIT>
-__global__ void ray_exit_kernel(const T* __restrict__ unit,
-                                const T* __restrict__ rel,
-                                const T* __restrict__ vdw,
-                                const T* __restrict__ origin,
-                                uint8_t* __restrict__ any_front,
-                                T* __restrict__ max_exit, int P, int N) {
+__global__ void ray_exit_kernel(const T* __restrict__ unit_all,
+                                const T* __restrict__ rel_all,
+                                const T* __restrict__ vdw_all,
+                                const T* __restrict__ origin_all,
+                                uint8_t* __restrict__ any_front_all,
+                                T* __restrict__ max_exit_all, int P, int N) {
   __shared__ T sx[RAY_EXIT_TILE];
   __shared__ T sy[RAY_EXIT_TILE];
   __shared__ T sz[RAY_EXIT_TILE];
   __shared__ T sr[RAY_EXIT_TILE];
+
+  const int frame = blockIdx.y;
+  const T* unit = unit_all + static_cast<size_t>(frame) * P * 3;
+  const T* rel = rel_all + static_cast<size_t>(frame) * N * 3;
+  const T* vdw = vdw_all + static_cast<size_t>(frame) * N;
+  const T* origin = origin_all + static_cast<size_t>(frame) * 3;
+  uint8_t* any_front = any_front_all + static_cast<size_t>(frame) * P;
+  T* max_exit = max_exit_all + static_cast<size_t>(frame) * P;
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = p < P;
@@ -92,16 +102,16 @@ __global__ void ray_exit_kernel(const T* __restrict__ unit,
 
 template <typename T>
 void launch_ray_exit(const T* unit, const T* rel, const T* vdw,
-                     const T* origin, uint8_t* any_front, T* max_exit, int P,
-                     int N, bool want_exit, void* stream) {
-  if (P <= 0) return;
-  const int blocks = (P + RAY_EXIT_THREADS - 1) / RAY_EXIT_THREADS;
+                     const T* origin, uint8_t* any_front, T* max_exit, int B,
+                     int P, int N, bool want_exit, void* stream) {
+  if (B <= 0 || P <= 0) return;
+  const dim3 grid((P + RAY_EXIT_THREADS - 1) / RAY_EXIT_THREADS, B);
   auto s = static_cast<cudaStream_t>(stream);
   if (want_exit) {
-    ray_exit_kernel<T, true><<<blocks, RAY_EXIT_THREADS, 0, s>>>(
+    ray_exit_kernel<T, true><<<grid, RAY_EXIT_THREADS, 0, s>>>(
         unit, rel, vdw, origin, any_front, max_exit, P, N);
   } else {
-    ray_exit_kernel<T, false><<<blocks, RAY_EXIT_THREADS, 0, s>>>(
+    ray_exit_kernel<T, false><<<grid, RAY_EXIT_THREADS, 0, s>>>(
         unit, rel, vdw, origin, any_front, max_exit, P, N);
   }
 }
@@ -110,14 +120,14 @@ void launch_ray_exit(const T* unit, const T* rel, const T* vdw,
 
 void pw::ray_exit(const float* unit, const float* rel, const float* vdw,
                   const float* origin, uint8_t* any_front, float* max_exit,
-                  int P, int N, bool want_exit, void* stream) {
-  launch_ray_exit(unit, rel, vdw, origin, any_front, max_exit, P, N,
+                  int B, int P, int N, bool want_exit, void* stream) {
+  launch_ray_exit(unit, rel, vdw, origin, any_front, max_exit, B, P, N,
                   want_exit, stream);
 }
 
 void pw::ray_exit(const double* unit, const double* rel, const double* vdw,
                   const double* origin, uint8_t* any_front, double* max_exit,
-                  int P, int N, bool want_exit, void* stream) {
-  launch_ray_exit(unit, rel, vdw, origin, any_front, max_exit, P, N,
+                  int B, int P, int N, bool want_exit, void* stream) {
+  launch_ray_exit(unit, rel, vdw, origin, any_front, max_exit, B, P, N,
                   want_exit, stream);
 }

@@ -2,11 +2,12 @@
 (counterpart of ``pywindow_tpu.molecular``; reference:
 molecular.py:60-955).
 
-This slice carries loading (``load_file``), the whole system as one
-molecule (``system_to_molecule``) and the per-molecule
-analysis (``full_analysis`` and the ``calculate_*`` getters).  Every
-analysis runs on the device the caller names: ``full_analysis(device=)``
-defaults to the CPU, as a torch tensor does.
+The port carries loading (``load_file``, ``load_system``), the
+force-field key helpers (``swap_atom_keys``, ``decipher_atom_keys``),
+the whole system as one molecule (``system_to_molecule``) and the
+per-molecule analysis (``full_analysis`` and the ``calculate_*``
+getters).  Every analysis runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
+from pywindow_torch.io.forcefield import decipher_all
 from pywindow_torch.io.inputs import Input
 from pywindow_torch.ops import analysis as _analysis
 
@@ -32,6 +34,7 @@ class Molecule:
         system_name: str = "molecule",
         mol_id: int = 0,
         config: AnalysisConfig = DEFAULT_CONFIG,
+        device: torch.device | str = "cuda",
     ) -> None:
         self.mol = mol
         self.no_of_atoms = len(mol["elements"])
@@ -42,21 +45,26 @@ class Molecule:
         self.parent_system = system_name
         self.molecule_id = mol_id
         self.config = config
+        #: the device the ``calculate_*`` getters analyse on (the last
+        #: ``full_analysis`` call's)
+        self.device = device
         self.properties: dict = {"no_of_atoms": self.no_of_atoms}
         self._analysed = False
 
     def full_analysis(
         self,
         ncpus: int = 1,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         **kwargs,
     ) -> dict:
-        """Run the complete analysis on ``device``.
+        """Run the complete analysis on ``device`` (the card unless the
+        caller asks for the CPU; raises when there is no card).
 
         ``ncpus`` is accepted for reference API compatibility and
         ignored (parallelism is the device's job).
         """
         del ncpus
+        self.device = device
         res = _analysis.analyze(
             self.elements, self.coordinates, cfg=self.config, device=device,
             **kwargs,
@@ -93,7 +101,7 @@ class Molecule:
 
     def _ensure_analysis(self) -> None:
         if not self._analysed:
-            self.full_analysis()
+            self.full_analysis(device=self.device)
 
     def calculate_maximum_diameter(self) -> float:
         """Largest interatomic distance plus vdW radii, in Å."""
@@ -150,6 +158,36 @@ class MolecularSystem:
         obj.system_id = obj.filename.split(".")[0]
         obj.name = obj.system_id
         return obj
+
+    @classmethod
+    def load_system(
+        cls, dict_: dict, system_id: str | int = "system"
+    ) -> MolecularSystem:
+        """Wrap an already-decoded system dict (reference:
+        molecular.py:610-626)."""
+        obj = cls()
+        obj.system = dict_
+        obj.system_id = system_id
+        return obj
+
+    def swap_atom_keys(self, swap_dict: dict, dict_key: str = "atom_ids") -> None:
+        """Replace force-field atom ids by user-defined values
+        (reference: molecular.py:710-749)."""
+        if "atom_ids" not in self.system:
+            dict_key = "elements"
+        arr = np.asarray(self.system[dict_key], dtype="<U8")
+        for key, value in swap_dict.items():
+            arr[arr == key] = value
+        self.system[dict_key] = arr
+
+    def decipher_atom_keys(
+        self, forcefield: str = "DLF", dict_key: str = "atom_ids"
+    ) -> None:
+        """Force-field atom ids -> element symbols (reference:
+        molecular.py:751-796)."""
+        if "atom_ids" not in self.system:
+            dict_key = "elements"
+        self.system["elements"] = decipher_all(self.system[dict_key], forcefield)
 
     def system_to_molecule(self) -> Molecule:
         """Treat the whole system as one :class:`Molecule`

@@ -22,7 +22,15 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "pywindow_torch"
-SOURCES = ("bindings.cpp", "ray_exit.cu", "path_sweep.cu", "dbscan.cu")
+SOURCES = (
+    "bindings.cpp",
+    "ray_exit.cu",
+    "path_sweep.cu",
+    "fine_path.cu",
+    "dbscan.cu",
+    "lbfgsb_stable.cu",
+    "nm_xy.cu",
+)
 #: -fmad=false: no multiply-add contraction, so each kernel rounds
 #: exactly like its plain PyTorch version (which runs one op at a time).
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false")
@@ -72,6 +80,9 @@ def check_inputs(
         msg = f"{name}: all tensors must be on one CUDA device, got {devices}"
         raise ValueError(msg)
     for key, t in tensors.items():
+        if t.numel() >= 2**31:
+            msg = f"{name}: {key} has {t.numel()} elements (kernel indices are 32-bit)"
+            raise ValueError(msg)
         if not t.is_contiguous():
             msg = f"{name}: {key} must be contiguous"
             raise ValueError(msg)
@@ -79,3 +90,22 @@ def check_inputs(
             msg = f"{name}: {key} has dtype {t.dtype}, expected {dtype}"
             raise TypeError(msg)
     return next(iter(devices))
+
+
+#: shared memory a block may use on the card (227 KB of the SM's 256 KB)
+SMEM_LIMIT = 232448
+
+
+def check_smem(name: str, nbytes: int) -> None:
+    """Refuse a launch whose per-block shared memory exceeds the card's
+    limit (a molecule too large to stage)."""
+    if nbytes > SMEM_LIMIT:
+        msg = f"{name}: needs {nbytes} bytes of shared memory per block (> {SMEM_LIMIT})"
+        raise ValueError(msg)
+
+
+def check_shape(name: str, t: torch.Tensor, shape: tuple, what: str) -> None:
+    """Raise unless ``t`` has exactly ``shape``."""
+    if tuple(t.shape) != tuple(shape):
+        msg = f"{name}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}"
+        raise ValueError(msg)

@@ -2,11 +2,13 @@
 ``Molecule.full_analysis`` (counterpart of ``pywindow_tpu.ops.analysis``;
 reference: molecular.py:156-202).
 
-``full_analysis_device`` computes every property on the molecule's
-device; :func:`analyze` derives the static sampling sizes on the host,
-fetches the packed result in one transfer, re-runs with escalated caps
-or budgets where the device flags it, and converts the result into the
-reference's properties-dict schema.
+``full_analysis_device`` computes every property of a batch of B
+molecules (B, N) on their device, with no loop over frames: one
+molecule is the B = 1 case.  :func:`analyze` derives the static sampling
+sizes on the host, fetches the packed result in one transfer, re-runs
+with escalated caps or budgets where the device flags it, and converts
+the result into the reference's properties-dict schema;
+:func:`to_properties_dicts_bulk` does the conversion for a whole batch.
 """
 
 from __future__ import annotations
@@ -26,9 +28,10 @@ from pywindow_torch.config import (
     AnalysisConfig,
     effective_budgets,
     pore_opt_mode,
+    resolve_device,
 )
 from pywindow_torch.ops import rays
-from pywindow_torch.ops.encoding import MolArrays, encode
+from pywindow_torch.ops.encoding import MolArrays, encode_batch
 from pywindow_torch.ops.geometry import (
     center_of_mass,
     clearance_field,
@@ -36,11 +39,11 @@ from pywindow_torch.ops.geometry import (
     max_dim_value,
     molecular_weight,
     pore_diameter,
-    pore_stable_probe,
     shift_to,
     sphere_volume,
 )
-from pywindow_torch.ops.lbfgsb import lbfgsb_minimize, lbfgsb_minimize_stable
+from pywindow_torch.ops.lbfgsb import lbfgsb_minimize
+from pywindow_torch.ops.lbfgsb_kernels import EMB_XYZ, lbfgsb_stable_flat
 from pywindow_torch.ops.windows import WindowsResult, find_windows
 from pywindow_torch.profiling import METRICS, stage
 
@@ -69,12 +72,13 @@ class FullAnalysis(NamedTuple):
 def optimise_pore_centre_res(
     mol: MolArrays, cfg: AnalysisConfig = DEFAULT_CONFIG
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The optimised pore centre (L-BFGS-B from the COM within a
-    ±pore_r box; reference: utilities.py:400-426) and the flag that the
-    (possibly fast) iteration budget stopped it.
+    """The optimised pore centres (B, 3) of a batch (L-BFGS-B from the
+    COM within a ±pore_r box; reference: utilities.py:400-426) and the
+    flags (B,) that the (possibly fast) iteration budget stopped them.
 
-    Runs in :data:`~pywindow_torch.config.OPT_DTYPE`: the stable driver
-    for a float32 pipeline, the plain one for float64 (see
+    Runs in :data:`~pywindow_torch.config.OPT_DTYPE`: the stable driver,
+    the ``lbfgsb_stable`` kernel on the card, for a float32 pipeline;
+    the plain FD driver for float64 (see
     :func:`~pywindow_torch.config.pore_opt_mode`).
     """
     opt_maxiter, _ = effective_budgets(cfg)
@@ -82,16 +86,12 @@ def optimise_pore_centre_res(
     omol = mol.to(OPT_DTYPE)
     com = center_of_mass(omol)
     pd0, _ = pore_diameter(omol, com=com)
-    pore_r = pd0 / 2.0
-    x0, lower, upper = com[None], (com - pore_r)[None], (com + pore_r)[None]
+    pore_r = (pd0 / 2.0)[:, None]
+    x0, lower, upper = com, com - pore_r, com + pore_r
     if stable:
-
-        def f_abs(x):
-            return -2.0 * clearance_field(x[:, None, :], omol)[:, 0]
-
-        opt = lbfgsb_minimize_stable(
-            pore_stable_probe(omol), f_abs, x0, lower, upper,
-            maxiter=opt_maxiter,
+        x, _, _, _, capped = lbfgsb_stable_flat(
+            omol.coords, omol.vdw, torch.zeros_like(com), x0, lower, upper,
+            emb=EMB_XYZ, sign=-1.0, maxiter=opt_maxiter,
         )
     else:
 
@@ -99,7 +99,8 @@ def optimise_pore_centre_res(
             return -2.0 * clearance_field(points, omol)
 
         opt = lbfgsb_minimize(f_neg, x0, lower, upper, maxiter=opt_maxiter)
-    return opt.x[0].to(mol.coords.dtype), opt.capped[0]
+        x, capped = opt.x, opt.capped
+    return x.to(mol.coords.dtype), capped
 
 
 def full_analysis_device(
@@ -110,7 +111,8 @@ def full_analysis_device(
     l2: int,
     cfg: AnalysisConfig,
 ) -> FullAnalysis:
-    """Every per-molecule property, computed on ``mol``'s device."""
+    """Every per-molecule property of the batch ``mol`` (B, N), computed
+    on its device."""
     mw = molecular_weight(mol)
     com = center_of_mass(mol)
     a1, a2, maxd = max_dim(mol)
@@ -149,9 +151,10 @@ def full_analysis_device(
 
 
 def pack_results(res: FullAnalysis) -> torch.Tensor:
-    """Flatten a FullAnalysis into one float vector, so the host fetches
-    one tensor.  Layout: 15 scalars, COM (3), optimised centre (3), then
-    per-window diameters / valid / refine_failed / centres (W slots)."""
+    """Flatten a batched FullAnalysis into one (B, 21 + 6 W) float
+    tensor, so the host fetches one tensor.  Row layout: 15 scalars, COM
+    (3), optimised centre (3), then per-window diameters / valid /
+    refine_failed / centres (W slots)."""
     w = res.windows
     f = res.pore_diameter.dtype
     scalars = [
@@ -173,19 +176,31 @@ def pack_results(res: FullAnalysis) -> torch.Tensor:
     ]
     return torch.cat(
         [
-            torch.stack([s.to(f) for s in scalars]),
+            torch.stack([s.to(f) for s in scalars], -1),
             res.centre_of_mass,
             res.pore_opt_centre,
             w.diameters,
             w.valid.to(f),
             w.refine_failed.to(f),
-            w.centers.reshape(-1),
-        ]
+            w.centers.flatten(-2),
+        ],
+        -1,
     )
 
 
+def run_pipeline(
+    mols: MolArrays, sizes: tuple[int, int, int, int], cfg: AnalysisConfig
+) -> torch.Tensor:
+    """The device pipeline of one batch: (B, N) molecules -> packed
+    (B, 21 + 6 W) results on their device.  The single-molecule path and
+    every chunk of a sweep run through here, so each kernel launches the
+    same number of times per call whatever B is."""
+    return pack_results(full_analysis_device(mols, *sizes, cfg))
+
+
 def unpack_results(flat: np.ndarray, max_windows: int) -> FullAnalysis:
-    """Host-side inverse of :func:`pack_results` (numpy arrays)."""
+    """Host-side inverse of :func:`pack_results` for one row (numpy
+    arrays)."""
     wnd = max_windows
     s = flat[:15]
     off = 21
@@ -252,25 +267,27 @@ def analyze(
     coordinates: np.ndarray,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     pad_to: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> dict:
-    """Host entry: full analysis of one molecule on ``device`` ->
-    reference-schema properties dict.
+    """Host entry: full analysis of one molecule on ``device`` (the card
+    unless the caller asks for the CPU) -> reference-schema properties
+    dict.  The molecule runs as a batch of one.
 
     Re-runs with a doubled compaction fraction when the open rays
     overflowed the cap, at the full optimiser budgets when a fast budget
     stopped an optimiser, and with a doubled window cap when the
     clusters filled every slot (up to MAX_WINDOWS_CEILING).
     """
+    device = resolve_device(device)
     with stage("encode"):
-        mol = encode(elements, coordinates, pad_to=pad_to, device=device)
+        mol = encode_batch([(elements, coordinates)], pad_to=pad_to, device=device)
     with stage("static_sizes"):
         maxd = max_dim_host(np.asarray(elements), np.asarray(coordinates))
         sizes = static_sizes(maxd, cfg)
     while True:
         with stage("full_analysis"):
-            flat = pack_results(full_analysis_device(mol, *sizes, cfg))
-            res = unpack_results(flat.cpu().numpy(), cfg.max_windows)
+            flat = run_pipeline(mol, sizes, cfg)
+            res = unpack_results(flat[0].cpu().numpy(), cfg.max_windows)
         props = to_properties_dict(res)
         overflow = props.pop("_open_cap_overflow", False)
         budget = props.pop("_opt_budget_exceeded", False)
@@ -354,3 +371,80 @@ def to_properties_dict(res: FullAnalysis) -> dict:
     if bool(np.asarray(wins.opt_capped)):
         out["_opt_budget_exceeded"] = True
     return out
+
+
+def to_properties_dicts_bulk(flat: np.ndarray, max_windows: int) -> list[dict]:
+    """``to_properties_dict(unpack_results(row))`` for every row of a
+    (B, packed) result block, with the scalar columns converted once
+    (counterpart of ``pywindow_tpu.ops.analysis.to_properties_dicts_bulk``
+    and of its native converter ``_native/fastprops.cpp``)."""
+    w = max_windows
+    off = 21
+    b = flat.shape[0]
+    any_open = flat[:, 11] > 0.5
+    diam = np.ascontiguousarray(flat[:, off : off + w])
+    valid = flat[:, off + w : off + 2 * w] > 0.5
+    fail_any = (flat[:, off + 2 * w : off + 3 * w] > 0.5).any(axis=1)
+    neg_any = ((diam < 0) & valid).any(axis=1)
+    cent = np.ascontiguousarray(flat[:, off + 3 * w : off + 6 * w]).reshape(b, w, 3)
+    com = np.ascontiguousarray(flat[:, 15:18])
+    com_opt = np.ascontiguousarray(flat[:, 18:21])
+    cap_sat = np.rint(flat[:, 12]).astype(np.int64) >= w
+    overflow = flat[:, 13] > 0.5
+    budget = flat[:, 14] > 0.5
+    rows = flat[:, :15].tolist()
+    out: list[dict] = []
+    for i in range(b):
+        r = rows[i]
+        if not any_open[i]:
+            windows: dict = {"diameters": None, "centre_of_mass": None}
+        else:
+            v = valid[i]
+            windows = {"diameters": diam[i, v], "centre_of_mass": cent[i, v]}
+            if fail_any[i]:
+                logger.warning(
+                    "one of the analysed windows has returned as None "
+                    "(refinement failed); see manual"
+                )
+            if neg_any[i]:
+                logger.warning(
+                    "one of the analysed windows has a vdW-corrected "
+                    "diameter smaller than 0; see manual"
+                )
+        props = {
+            "centre_of_mass": com[i],
+            "maximum_diameter": {
+                "diameter": r[1],
+                "atom_1": int(round(r[7])),
+                "atom_2": int(round(r[8])),
+            },
+            "average_diameter": r[2],
+            "pore_diameter": {"diameter": r[3], "atom": int(round(r[9]))},
+            "pore_volume": r[4],
+            "pore_diameter_opt": {
+                "diameter": r[5],
+                "atom_1": int(round(r[10])),
+                "centre_of_mass": com_opt[i],
+            },
+            "pore_volume_opt": r[6],
+            "windows": windows,
+            "molecular_weight": r[0],
+        }
+        if cap_sat[i]:
+            props["_window_cap_saturated"] = True
+        if overflow[i]:
+            props["_open_cap_overflow"] = True
+        if budget[i]:
+            props["_opt_budget_exceeded"] = True
+        out.append(props)
+    return out
+
+
+def max_dim_bound(elements: np.ndarray, coordinates: np.ndarray) -> float:
+    """Cheap O(N) upper bound on the vdW-corrected maximum diameter
+    (bounding-box diagonal + two max vdW radii), used to size the ray
+    paths of a whole batch."""
+    ids = tables.element_ids(elements)
+    c = np.asarray(coordinates, dtype=np.float64)
+    diag = float(np.linalg.norm(c.max(axis=0) - c.min(axis=0)))
+    return diag + 2.0 * float(tables.ELEMENT_VDW[ids].max())

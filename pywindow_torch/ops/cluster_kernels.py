@@ -55,11 +55,9 @@ def dbscan(
     min_samples: int = 5,
     max_clusters: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(labels, n_clusters) of one point set (K, 3); see
-    :func:`pywindow_torch.ops.cluster.dbscan`."""
+    """(labels (B, K), n_clusters (B,)) of B point sets (B, K, 3) with
+    validity (B, K) and eps (B,); see :func:`pywindow_torch.ops.cluster.dbscan`."""
     if _cuda.device_type("dbscan", points) == "cuda":
-        labels = dbscan_labels_cuda(
-            points[None], valid[None], eps.reshape(1), min_samples, max_clusters
-        )[0]
-        return labels, labels.max() + 1
+        labels = dbscan_labels_cuda(points, valid, eps, min_samples, max_clusters)
+        return labels, labels.amax(-1) + 1
     return _cluster.dbscan(points, valid, eps, min_samples, max_clusters)

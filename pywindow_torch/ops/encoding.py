@@ -49,22 +49,16 @@ def round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-def encode(
-    elements: np.ndarray,
-    coordinates: np.ndarray,
-    pad_to: int | None = None,
-    dtype: torch.dtype | None = None,
-    device: torch.device | str = "cpu",
-) -> MolArrays:
-    """Encode one molecule's host data into padded tensors on ``device``."""
-    dtype = dtype or default_dtype(device)
+def encode_host(
+    elements: np.ndarray, coordinates: np.ndarray, n_pad: int, np_dtype
+) -> tuple[np.ndarray, ...]:
+    """One molecule's padded field arrays (coords, mass, vdw, cov, mask)
+    as host numpy arrays."""
     ids = tables.element_ids(elements)
     n = len(ids)
-    n_pad = pad_to if pad_to is not None else round_up(max(n, 1), pad_multiple())
     if n_pad < n:
         msg = f"pad_to={n_pad} smaller than atom count {n}"
         raise ValueError(msg)
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     coords = np.full((n_pad, 3), FAR_AWAY, dtype=np_dtype)
     coords[:n] = np.asarray(coordinates, dtype=np_dtype)
     fields = [np.zeros(n_pad, dtype=np_dtype) for _ in range(3)]
@@ -74,6 +68,34 @@ def encode(
         field[:n] = table[ids]
     mask = np.zeros(n_pad, dtype=bool)
     mask[:n] = True
-    return MolArrays(
-        *(torch.as_tensor(f, device=device) for f in (coords, *fields, mask))
-    )
+    return (coords, *fields, mask)
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch float dtype."""
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def encode_batch(
+    systems: list[tuple[np.ndarray, np.ndarray]],
+    pad_to: int | None = None,
+    dtype: torch.dtype | None = None,
+    device: torch.device | str = "cpu",
+) -> MolArrays:
+    """Encode (elements, coordinates) pairs into one stacked (B, N_pad)
+    batch on ``device``, padded to the largest member (counterpart of
+    ``pywindow_tpu.ops.encoding.encode_batch``, encoding.py:95-113): the
+    batch is assembled on the host and moved in one transfer per field."""
+    dtype = dtype or default_dtype(device)
+    n_max = max(len(e) for e, _ in systems)
+    n_pad = pad_to if pad_to is not None else round_up(max(n_max, 1), pad_multiple())
+    per_mol = [encode_host(e, c, n_pad, numpy_dtype(dtype)) for e, c in systems]
+    stacked = (np.stack(field) for field in zip(*per_mol))
+    return MolArrays(*(torch.as_tensor(f, device=device) for f in stacked))
+
+
+def unmasked(coords: torch.Tensor, vdw: torch.Tensor) -> MolArrays:
+    """Flat (coords, vdw) as MolArrays with every atom valid: padded
+    atoms, parked at :data:`FAR_AWAY` with vdW 0, cannot win a clearance
+    minimum, so the kernels' inputs need no mask."""
+    return MolArrays(coords, vdw, vdw, vdw, torch.ones_like(vdw, dtype=torch.bool))

@@ -100,22 +100,6 @@ def clearance_diff(
     return q.amin(-1)
 
 
-def pore_stable_probe(mol: MolArrays):
-    """Symbolic-difference evaluator of the pore objective ``-2*clearance``
-    for :func:`pywindow_torch.ops.lbfgsb.lbfgsb_minimize_stable`.
-
-    ``probe(x, disp, h)`` with x, disp, h of shape (B, 3) returns
-    ``(f(x+disp) - f(x), FD gradient at x+disp)`` of shapes (B,), (B, 3).
-    """
-
-    def probe(x, disp, h):
-        delta = clearance_diff(x, disp[..., None, :], mol)[..., 0]
-        dprobe = clearance_diff(x + disp, torch.diag_embed(h), mol)
-        return -2.0 * delta, -2.0 * (dprobe / h)
-
-    return probe
-
-
 def clearance_and_argmin(
     points: torch.Tensor, mol: MolArrays
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -5,11 +5,11 @@ Rays start at the coordinate mean of the (already centred) molecule and
 run along unit vectors towards points of a sampling sphere centred at
 the origin (reference: utilities.py:1100-1161, :1556-1583).  The two
 per-ray reductions go through :mod:`pywindow_torch.ops.ray_kernels`:
-``ray_exit`` for the pre-analysis and the average diameter, and
-``path_sweep`` for the coarse path sweep.  The W-slot fine re-sampling
-(:func:`fine_path_analysis`) runs the step-chunked plain form on every
-device; its kernel (``_fine_path_flat`` in the JAX package) is still to
-be ported.
+``ray_exit`` for the pre-analysis and the average diameter,
+``path_sweep`` for the coarse path sweep and ``fine_path`` for the
+W-slot fine re-sampling.  Every function takes molecules with a leading
+frame axis (B, N) and rays (B, P, 3); the plain versions also take one
+unbatched molecule.
 """
 
 from __future__ import annotations
@@ -23,12 +23,7 @@ import torch
 
 from pywindow_torch.ops import ray_kernels
 from pywindow_torch.ops.encoding import MolArrays
-from pywindow_torch.ops.geometry import (
-    BIG,
-    center_of_coor,
-    clearance_field,
-    sq_norm3,
-)
+from pywindow_torch.ops.geometry import center_of_coor, sq_norm3
 
 
 def number_of_points(sphere_radius: float, adjust: float = 1.0) -> int:
@@ -52,7 +47,8 @@ def linspace(start, stop, num: int, dtype, device) -> torch.Tensor:
 
 def golden_spiral(n_points: int, radius: torch.Tensor) -> torch.Tensor:
     """``n_points`` golden-angle spiral points on a sphere of ``radius``
-    (a 0-d tensor), the reference's layout (utilities.py:1410-1423)."""
+    (a 0-d tensor, or (B,) for one sphere per frame -> (B, P, 3)), the
+    reference's layout (utilities.py:1410-1423)."""
     dtype, device = radius.dtype, radius.device
     golden_angle = math.pi * (
         3.0 - torch.sqrt(torch.tensor(5.0, dtype=dtype, device=device))
@@ -62,7 +58,7 @@ def golden_spiral(n_points: int, radius: torch.Tensor) -> torch.Tensor:
         1.0 - 1.0 / n_points, 1.0 / n_points - 1.0, n_points, dtype, device
     )
     rho = torch.sqrt(1.0 - z * z)
-    return radius * torch.stack(
+    return radius[..., None, None] * torch.stack(
         [rho * torch.cos(theta), rho * torch.sin(theta), z], dim=-1
     )
 
@@ -104,7 +100,7 @@ def _ray_frame(
     """(unit directions, atoms relative to the ray origin, origin)."""
     unit = points / torch.sqrt(sq_norm3(points))[..., None]
     origin = center_of_coor(mol)
-    rel = torch.where(mol.mask[..., None], mol.coords - origin, 0.0)
+    rel = torch.where(mol.mask[..., None], mol.coords - origin[..., None, :], 0.0)
     return unit, rel, origin
 
 
@@ -183,40 +179,14 @@ def path_analysis(
 
 
 def fine_path_analysis(
-    vectors: torch.Tensor,
-    mol: MolArrays,
-    increment: float,
-    max_steps: int,
-    chunk_len: int = 16,
+    vectors: torch.Tensor, mol: MolArrays, increment: float, max_steps: int
 ) -> PathAnalysis:
-    """:func:`path_analysis` for the few W-slot rays of the window
-    refinement, as the JAX package runs it for one molecule: the path
-    scanned in ``chunk_len``-step blocks reduced into running
-    (ok, first-argmin step, min clearance) carries (rays.py:219-271)."""
-    dtype = vectors.dtype
+    """:func:`path_analysis` for the few W-slot rays (B, W, 3) of the
+    window refinement, at the fine increment; runs on
+    ``ray_kernels.fine_path``, whose plain version is the JAX package's
+    step-chunked scan (rays.py:219-271)."""
     norm, chunks = _chunks(vectors, increment)
-    chunksf = chunks.to(dtype)
-    n_blocks = (max_steps + chunk_len - 1) // chunk_len
-    all_steps = torch.arange(
-        n_blocks * chunk_len, dtype=dtype, device=vectors.device
-    ).reshape(n_blocks, chunk_len)
-    shape_p = vectors.shape[:-1]
-    ok = torch.ones(shape_p, dtype=torch.bool, device=vectors.device)
-    pos = torch.zeros(shape_p, dtype=dtype, device=vectors.device)
-    cmin = torch.full(shape_p, BIG, dtype=dtype, device=vectors.device)
-    for steps in all_steps:
-        frac = steps / chunksf[..., None]  # (..., P, chunk)
-        pathway = vectors[..., None, :] * frac[..., None]
-        flat = pathway.reshape(*pathway.shape[:-3], -1, 3)
-        c = clearance_field(flat, mol).reshape(pathway.shape[:-1])
-        valid = (steps.to(torch.int32) <= chunks[..., None]) & (
-            steps < max_steps
-        )
-        ok = ok & ((c > 0.0) | ~valid).all(-1)
-        c_masked = torch.where(valid, c, BIG)
-        blk_min = c_masked.amin(-1)
-        blk_pos = steps[c_masked.argmin(-1)]
-        better = blk_min < cmin  # strict: earlier blocks keep ties
-        cmin = torch.where(better, blk_min, cmin)
-        pos = torch.where(better, blk_pos, pos)
+    ok, pos, cmin = ray_kernels.fine_path(
+        vectors, chunks, mol.coords, mol.vdw, max_steps
+    )
     return _path_result(vectors, norm, chunks, ok, pos, cmin)

@@ -17,9 +17,12 @@ utilities.py:1191-1361):
 5. window diameter = clearance diameter at the refined centre, rotated
    back into the input frame.
 
-The W window slots are refined together as W optimiser lanes.  The
-optimisers run as plain tensor code in the dtype's mode (see
-:func:`pywindow_torch.config.window_opt_mode`).
+Everything runs on a batch of B frames with no loop over frames: the W
+window slots of every frame are refined together as B * W optimiser
+lanes.  In the dtype's "stable" mode (see
+:func:`pywindow_torch.config.window_opt_mode`) the z and xy stages are
+the ``lbfgsb_stable`` and ``nm_xy`` kernels (their plain versions on
+the CPU); in "classic" mode they are the plain FD drivers.
 """
 
 from __future__ import annotations
@@ -41,24 +44,26 @@ from pywindow_torch.ops.encoding import MolArrays
 from pywindow_torch.ops.geometry import (
     BIG,
     center_of_mass,
-    clearance_diff,
     clearance_field,
     max_dim_value,
     pore_diameter,
 )
-from pywindow_torch.ops.lbfgsb import lbfgsb_minimize, lbfgsb_minimize_stable
+from pywindow_torch.ops.lbfgsb import lbfgsb_minimize
+from pywindow_torch.ops.lbfgsb_kernels import EMB_Z, lbfgsb_stable_flat
+from pywindow_torch.ops.nm_kernels import nm_xy_flat
 from pywindow_torch.ops.optim import brute_then_polish
 
 
 class WindowsResult(NamedTuple):
-    """Padded window set for one molecule."""
+    """Padded window sets of a batch of molecules (unpacked on the host:
+    one molecule, without the batch axis)."""
 
-    diameters: torch.Tensor  # (W,)
-    centers: torch.Tensor  # (W, 3) in the input coordinate frame
-    valid: torch.Tensor  # (W,) bool
-    any_open: torch.Tensor  # bool; False == the reference's None return
-    n_clusters: torch.Tensor  # int32 (before refinement failures)
-    refine_failed: torch.Tensor  # (W,) bool, for warning parity
+    diameters: torch.Tensor  # (B, W)
+    centers: torch.Tensor  # (B, W, 3) in the input coordinate frame
+    valid: torch.Tensor  # (B, W) bool
+    any_open: torch.Tensor  # (B,) bool; False == the reference's None return
+    n_clusters: torch.Tensor  # (B,) int32 (before refinement failures)
+    refine_failed: torch.Tensor  # (B, W) bool, for warning parity
     open_overflow: torch.Tensor  # bool: open rays exceeded the compaction
     #                             cap (the host re-runs with a doubled
     #                             cfg.open_cap_frac)
@@ -144,45 +149,24 @@ def _apply(rot: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _z_stable_probe(rmol: MolArrays, xy: torch.Tensor):
-    """Symbolic-difference evaluator of the window z objective
-    ``f(z) = 2 * clearance((xy_0, xy_1, z))`` on the rotated molecule
-    (reference ``optimise_z``, utilities.py:1174-1188), as the
-    ``(probe, f_abs)`` pair of :func:`lbfgsb_minimize_stable`; lanes
-    are windows, xy is (W, 2)."""
-
-    def embed(zv):  # (W, 1) -> (W, 3)
-        return torch.cat([xy, zv], -1)
-
-    def ez(v):  # (W, ...) -> (W, ..., 3) displacement along z
-        zero = torch.zeros_like(v)
-        return torch.stack([zero, zero, v], -1)
-
-    def probe(zv, disp, h):
-        x3 = embed(zv)
-        dd = ez(disp[:, 0])
-        delta = 2.0 * clearance_diff(x3, dd[:, None, :], rmol)[:, 0]
-        dprobe = 2.0 * clearance_diff(x3 + dd, ez(h), rmol)
-        return delta, dprobe / h
-
-    def f_abs(zv):
-        return 2.0 * clearance_field(embed(zv)[:, None, :], rmol)[:, 0]
-
-    return probe, f_abs
-
-
 def _z_minimize(rmol, xy, z0, z_lower, z_up, stable, maxiter):
+    """Window z by L-BFGS-B on ``f(z) = 2 * clearance((xy, z))``
+    (reference ``optimise_z``, utilities.py:1174-1188), one lane per
+    window; returns (z (L, 1), capped (L,))."""
     if stable:
-        probe, f_abs = _z_stable_probe(rmol, xy)
-        return lbfgsb_minimize_stable(
-            probe, f_abs, z0, z_lower, z_up, maxiter=maxiter
+        zero = torch.zeros_like(xy[:, :1])
+        x, _, _, _, capped = lbfgsb_stable_flat(
+            rmol.coords, rmol.vdw, torch.cat([xy, zero], -1), z0, z_lower,
+            z_up, emb=EMB_Z, sign=1.0, maxiter=maxiter,
         )
+        return x, capped
 
-    def f_z(zs):  # (W, K, 1) -> (W, K)
+    def f_z(zs):  # (L, K, 1) -> (L, K)
         pts = torch.cat([xy[:, None, :].expand(-1, zs.shape[1], -1), zs], -1)
         return 2.0 * clearance_field(pts, rmol)
 
-    return lbfgsb_minimize(f_z, z0, z_lower, z_up, maxiter=maxiter)
+    res = lbfgsb_minimize(f_z, z0, z_lower, z_up, maxiter=maxiter)
+    return res.x, res.capped
 
 
 def _window_refine(
@@ -191,82 +175,94 @@ def _window_refine(
     new_z: torch.Tensor,
     cfg: AnalysisConfig,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Refine W windows from their widest sampling rays, as W lanes.
+    """Refine the W windows of B frames from their widest sampling rays,
+    as B * W optimiser lanes.
 
-    ``mol`` is the pore-centred molecule; ``vector`` (W, 3) the widest
-    rays; ``new_z`` (W,) the distance of each ray's narrowest point
-    (from the fine re-sampling).  Runs in
+    ``mol`` is the pore-centred batch (B, N); ``vector`` (B, W, 3) the
+    widest rays; ``new_z`` (B, W) the distance of each ray's narrowest
+    point (from the fine re-sampling).  Runs in
     :data:`~pywindow_torch.config.OPT_DTYPE` (rotation included) and
-    returns (diameter (W,), centre (W, 3), capped (W,)) in that dtype.
+    returns (diameter (B, W), centre (B, W, 3), capped (B, W)) in that
+    dtype.  In "stable" mode the z and xy stages are the
+    ``lbfgsb_stable`` and ``nm_xy`` kernels.
     """
     opt_maxiter, nm_maxiter = effective_budgets(cfg)
     stable = window_opt_mode(vector.dtype) == "stable"
-    mol, vector, new_z = mol.to(OPT_DTYPE), vector.to(OPT_DTYPE), new_z.to(OPT_DTYPE)
+    b, n_w = vector.shape[:2]
+    n = mol.coords.shape[-2]
+    lanes = b * n_w
+    mol = mol.to(OPT_DTYPE)
+    vector = vector.to(OPT_DTYPE).reshape(lanes, 3)
+    new_z = new_z.to(OPT_DTYPE).reshape(lanes)
     dtype, device = vector.dtype, vector.device
-    n_w = vector.shape[0]
-    a1, a2 = _octant_angles(vector)
-    coords = _apply(_rot_y(a2), _apply(_rot_z(a1), mol.coords.expand(n_w, -1, -1)))
-    coords = coords - torch.stack(
-        [torch.zeros_like(new_z), torch.zeros_like(new_z), new_z], -1
-    )[:, None, :]
-    rmol = mol._replace(coords=coords)
 
-    zeros = torch.zeros((n_w, 1), dtype=dtype, device=device)
+    def per_lane(t):  # (B, N, ...) -> (B * W, N, ...), contiguous for the kernels
+        return t[:, None].expand(b, n_w, *t.shape[1:]).reshape(lanes, *t.shape[1:]).contiguous()
+
+    a1, a2 = _octant_angles(vector)
+    coords = _apply(_rot_y(a2), _apply(_rot_z(a1), per_lane(mol.coords)))
+    lift = torch.stack([torch.zeros_like(new_z), torch.zeros_like(new_z), new_z], -1)
+    coords = coords - lift[:, None, :]
+    rmol = MolArrays(
+        coords, per_lane(mol.mass), per_lane(mol.vdw), per_lane(mol.cov),
+        per_lane(mol.mask),
+    )
+
     wd0 = 2.0 * clearance_field(
-        torch.zeros((n_w, 1, 3), dtype=dtype, device=device), rmol
+        torch.zeros((lanes, 1, 3), dtype=dtype, device=device), rmol
     )[:, 0]
 
     # z minimisation (reference: utilities.py:1299-1305)
     z_lower = (-new_z if cfg.lb_z else torch.full_like(new_z, -1e10))[:, None]
     z_up = torch.full_like(z_lower, 1e10)
-    xy0 = torch.zeros((n_w, 2), dtype=dtype, device=device)
-    zres = _z_minimize(rmol, xy0, zeros, z_lower, z_up, stable, opt_maxiter)
-    z_star = zres.x[:, 0]
-    capped = zres.capped
+    xy0 = torch.zeros((lanes, 2), dtype=dtype, device=device)
+    z0 = torch.zeros((lanes, 1), dtype=dtype, device=device)
+    zx, capped = _z_minimize(rmol, xy0, z0, z_lower, z_up, stable, opt_maxiter)
+    z_star = zx[:, 0]
 
     # xy brute grid + Nelder-Mead polish (utilities.py:1307-1317)
+    half = wd0 / 2.0
     if stable:
         # delta space: every candidate as f(p) - f(anchor) through the
-        # symbolic-difference kernel, so the grid argmin and every
+        # symbolic-difference form, so the grid argmin and every
         # Nelder-Mead comparison see full-precision differences
-        anchor = torch.stack([xy0[:, 0], xy0[:, 1], z_star], -1)
-
-        def f_xy(xys):  # (W, K, 2) -> (W, K)
-            disp = torch.cat([xys, torch.zeros_like(xys[..., :1])], -1)
-            return -2.0 * clearance_diff(anchor, disp, rmol)
-
+        xy_star, _, nm_capped = nm_xy_flat(
+            rmol.coords, rmol.vdw, z_star, half, brute_ns=cfg.brute_ns,
+            maxiter=nm_maxiter,
+        )
     else:
 
-        def f_xy(xys):  # (W, K, 2) -> (W, K), negative diameter
+        def f_xy(xys):  # (L, K, 2) -> (L, K), negative diameter
             zs = z_star[:, None, None].expand(-1, xys.shape[1], 1)
             return -2.0 * clearance_field(torch.cat([xys, zs], -1), rmol)
 
-    half = wd0 / 2.0
-    xy_star, _, nm_capped = brute_then_polish(
-        f_xy,
-        torch.stack([-half, -half], -1),
-        torch.stack([half, half], -1),
-        ns=cfg.brute_ns,
-        maxiter=nm_maxiter,
-    )
+        xy_star, _, nm_capped = brute_then_polish(
+            f_xy,
+            torch.stack([-half, -half], -1),
+            torch.stack([half, half], -1),
+            ns=cfg.brute_ns,
+            maxiter=nm_maxiter,
+        )
     capped = capped | nm_capped
 
     if cfg.z_second_mini:
-        zres2 = _z_minimize(
-            rmol, xy_star, zres.x, z_lower, z_up, stable, opt_maxiter
+        zx2, capped2 = _z_minimize(
+            rmol, xy_star, zx, z_lower, z_up, stable, opt_maxiter
         )
-        z_star = zres2.x[:, 0]
-        capped = capped | zres2.capped
+        z_star = zx2[:, 0]
+        capped = capped | capped2
 
     centre_local = torch.cat([xy_star, z_star[:, None]], -1)
     diameter = 2.0 * clearance_field(centre_local[:, None, :], rmol)[:, 0]
 
     # reverse the transforms (utilities.py:1338-1360)
-    centre = centre_local + torch.stack(
-        [torch.zeros_like(new_z), torch.zeros_like(new_z), new_z], -1
-    )
+    centre = centre_local + lift
     centre = _apply(_rot_z(-a1), _apply(_rot_y(-a2), centre))
-    return diameter, centre, capped
+    return (
+        diameter.reshape(b, n_w),
+        centre.reshape(b, n_w, 3),
+        capped.reshape(b, n_w),
+    )
 
 
 def find_windows(
@@ -277,33 +273,35 @@ def find_windows(
     cfg: AnalysisConfig,
     pore_centre: torch.Tensor,
 ) -> WindowsResult:
-    """Full window detection for one molecule (input frame coordinates).
+    """Full window detection for a batch of B molecules (B, N), in the
+    input frame's coordinates; every quantity gains the frame axis.
 
-    ``pore_centre`` is the optimised pore centre the caller computed
-    (the reference reruns the same deterministic optimisation here,
-    utilities.py:1388); with ``cfg.pore_opt`` off the rays start from the
-    centre of mass instead.
+    ``pore_centre`` (B, 3) is the optimised pore centre the caller
+    computed (the reference reruns the same deterministic optimisation
+    here, utilities.py:1388); with ``cfg.pore_opt`` off the rays start
+    from the centre of mass instead.
     """
     dtype, device = mol.coords.dtype, mol.coords.device
+    b = mol.coords.shape[0]
     initial_com = center_of_mass(mol)
     # no interior at the COM -> no pore -> no windows (the reference
     # crashes here on inverted scipy bounds, utilities.py:416-421)
     pd_com, _ = pore_diameter(mol, com=initial_com)
-    has_pore = pd_com > 0.0
+    has_pore = (pd_com > 0.0)[:, None]
     centre = pore_centre if cfg.pore_opt else initial_com
 
-    shifted = mol._replace(coords=mol.coords - centre)
+    shifted = mol._replace(coords=mol.coords - centre[:, None, :])
     radius = max_dim_value(shifted) / 2.0
-    points = rays.golden_spiral(n_points, radius)
+    points = rays.golden_spiral(n_points, radius)  # (B, P, 3)
     eps = rays.mean_knn_eps_scaled(n_points, radius)
     open_pre = rays.preanalysis_open(points, shifted)
 
-    # open-ray compaction: the coarse sweep and DBSCAN only consume rays
-    # the pre-analysis left open, so they run on the first K open rays
-    # in spiral order (slot s takes the (s+1)-th open ray, found by a
-    # search of the running open count: no host sync); every later
-    # quantity depends only on relative order, so results equal the
-    # full-spiral path whenever the open count fits the cap, and
+    # open-ray compaction, per frame: the coarse sweep and DBSCAN only
+    # consume rays the pre-analysis left open, so they run on the first
+    # K open rays in spiral order (slot s takes the (s+1)-th open ray,
+    # found by a search of the running open count: no host sync); every
+    # later quantity depends only on relative order, so results equal
+    # the full-spiral path whenever the open count fits the cap, and
     # overflow is flagged for the host's re-run.  Empty slots are zero
     # rays, as the JAX package's one-hot compaction leaves them.
     kcap = open_cap(n_points, cfg.open_cap_frac)
@@ -311,18 +309,20 @@ def find_windows(
         cpoints = points
         path = rays.path_analysis(points, shifted, cfg.increment, l1)
         survives = open_pre & path.ok & has_pore
-        overflow = torch.zeros((), dtype=torch.bool, device=device)
+        overflow = torch.zeros(b, dtype=torch.bool, device=device)
     else:
-        count = torch.cumsum(open_pre.to(torch.int64), 0)
-        n_open = count[-1]
+        count = torch.cumsum(open_pre.to(torch.int64), -1)
+        n_open = count[:, -1]
         overflow = n_open > kcap
         slot = torch.arange(kcap, device=device)
-        src = torch.searchsorted(count, slot + 1).clamp_max(n_points - 1)
-        slot_valid = slot < n_open
-        cpoints = torch.where(slot_valid[:, None], points[src], 0.0)
+        targets = (slot + 1).expand(b, kcap).contiguous()
+        src = torch.searchsorted(count, targets).clamp_max(n_points - 1)
+        slot_valid = slot[None, :] < n_open[:, None]
+        picked = points.gather(1, src[..., None].expand(-1, -1, 3))
+        cpoints = torch.where(slot_valid[..., None], picked, 0.0)
         path = rays.path_analysis(cpoints, shifted, cfg.increment, l1)
         survives = slot_valid & path.ok & has_pore
-    any_open = survives.any()
+    any_open = survives.any(-1)
 
     labels, n_clusters = dbscan(
         cpoints,
@@ -334,15 +334,15 @@ def find_windows(
 
     # empty window slots refine any valid surviving ray instead of a
     # garbage vector, so their discarded optimiser lanes stop early
-    fallback_sel = torch.where(survives, path.width, -BIG).argmax()
+    fallback_sel = torch.where(survives, path.width, -BIG).argmax(-1)
 
     # widest-ray selection + fine 0.1 Å re-sampling for all W slots
     w_ids = torch.arange(cfg.max_windows, dtype=torch.int32, device=device)
-    in_cluster = labels[None, :] == w_ids[:, None]  # (W, K)
-    width_masked = torch.where(in_cluster, path.width[None, :], -BIG)
-    exists = (w_ids < n_clusters) & in_cluster.any(-1)
-    sel = torch.where(exists, width_masked.argmax(-1), fallback_sel)
-    vectors = cpoints[sel]  # (W, 3)
+    in_cluster = labels[:, None, :] == w_ids[None, :, None]  # (B, W, K)
+    width_masked = torch.where(in_cluster, path.width[:, None, :], -BIG)
+    exists = (w_ids[None, :] < n_clusters[:, None]) & in_cluster.any(-1)
+    sel = torch.where(exists, width_masked.argmax(-1), fallback_sel[:, None])
+    vectors = cpoints.gather(1, sel[..., None].expand(-1, -1, 3))  # (B, W, 3)
     refined = rays.fine_path_analysis(vectors, shifted, cfg.increment2, l2)
 
     diams, centres, w_capped = _window_refine(
@@ -351,12 +351,12 @@ def find_windows(
     diams, centres = diams.to(dtype), centres.to(dtype)
     failed = exists & ~refined.ok
     valid = exists & ~failed
-    centres = centres + centre
+    centres = centres + centre[:, None, :]
     # budget escalation: only real window slots count
-    opt_capped = (exists & w_capped).any()
+    opt_capped = (exists & w_capped).any(-1)
     return WindowsResult(
         diameters=torch.where(valid, diams, math.nan),
-        centers=torch.where(valid[:, None], centres, math.nan),
+        centers=torch.where(valid[..., None], centres, math.nan),
         valid=valid,
         any_open=any_open,
         n_clusters=n_clusters,

@@ -1,0 +1,426 @@
+"""Batched full analysis over many frames or molecules on one device
+(counterpart of ``pywindow_tpu.parallel.batch``).
+
+A chunk of B molecules runs the whole pipeline as one batch with a
+leading frame axis (:func:`pywindow_torch.ops.analysis.run_pipeline`):
+each kernel sees all of the chunk's frames in one launch, so the number
+of launches per chunk does not depend on B.  Chunks run one after another (a synchronous loop;
+streams and pinned buffers are later work), sized to the device's free
+memory by :func:`max_safe_batch`.  Molecules whose run outgrew a static
+cap, or an optimiser's fast budget, re-run escalated
+(:func:`retry_saturated_windows`); a sweep whose chunks mostly escalate
+opens later chunks, and later sweeps of the same system, at the
+escalated caps (:data:`LEARNED_CAPS`).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from pywindow_torch import tables
+from pywindow_torch.config import (
+    DEFAULT_CONFIG,
+    MAX_WINDOWS_CEILING,
+    AnalysisConfig,
+    default_dtype,
+    pad_multiple,
+    resolve_device,
+)
+from pywindow_torch.ops import analysis as _analysis
+from pywindow_torch.ops.analysis import (
+    max_dim_bound,
+    static_sizes,
+    to_properties_dicts_bulk,
+)
+from pywindow_torch.ops.encoding import (
+    FAR_AWAY,
+    MolArrays,
+    encode_batch,
+    encode_host,
+    numpy_dtype,
+    round_up,
+)
+from pywindow_torch.ops.geometry import pairwise_distances
+from pywindow_torch.ops.ray_kernels import MAX_FRAMES
+from pywindow_torch.ops.windows import open_cap
+from pywindow_torch.profiling import METRICS, stage
+
+logger = logging.getLogger("pywindow_torch")
+
+#: working-memory budget of a batch on the CPU (the card's budget is
+#: read from the card: see :func:`memory_budget`)
+HOST_BUDGET_BYTES = 2 * 1024**3
+#: share of the card's free memory a chunk may plan to use
+CARD_BUDGET_SHARE = 0.8
+
+
+class LearnedCaps:
+    """Escalated configs learned per (system, padded atoms, base config),
+    bounded to ``limit`` entries with the oldest evicted first (the JAX
+    package cleared the whole store when it filled)."""
+
+    def __init__(self, limit: int = 32) -> None:
+        self.limit = limit
+        self._caps: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key, default: AnalysisConfig) -> AnalysisConfig:
+        return self._caps.get(key, default)
+
+    def put(self, key, cfg: AnalysisConfig) -> None:
+        self._caps[key] = cfg
+        self._caps.move_to_end(key)
+        while len(self._caps) > self.limit:
+            self._caps.popitem(last=False)
+
+    def __len__(self) -> int:
+        return len(self._caps)
+
+
+#: the process's learned cap escalations (see :class:`LearnedCaps`)
+LEARNED_CAPS = LearnedCaps()
+
+
+def memory_budget(device: torch.device) -> int:
+    """Bytes a batch may plan to use: a share of the card's free memory,
+    or :data:`HOST_BUDGET_BYTES` on the CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return int(CARD_BUDGET_SHARE * free)
+    return HOST_BUDGET_BYTES
+
+
+def frame_bytes(
+    n_pad: int, n_win: int, k: int, l1: int, max_windows: int, device_type: str
+) -> int:
+    """Peak working bytes per frame of the device pipeline.
+
+    On the card: the (N, N, 3) pairwise differences of the maximum
+    diameter with their (N, N) reductions (~48 N^2 bytes in float32),
+    the window lanes' rotated float64 molecules and their temporaries
+    (~160 W N), and the DBSCAN adjacency bitmask.  The plain ray sweeps
+    of the CPU also materialise (rays, steps, atoms, 3) float64 blocks.
+    """
+    card = 48 * n_pad * n_pad + 160 * max_windows * n_pad + k * k
+    if device_type == "cuda":
+        return card
+    return card + 32 * k * l1 * n_pad + 64 * n_win * n_pad + 32 * k * k
+
+
+def max_safe_batch(
+    n_atoms: int,
+    max_diameter: float,
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    device: torch.device | str = "cuda",
+    budget: int | None = None,
+) -> int:
+    """Largest batch whose working memory (:func:`frame_bytes`) fits the
+    device's budget (:func:`memory_budget` unless ``budget`` is given),
+    and at most the frames one ray-kernel launch takes
+    (:data:`~pywindow_torch.ops.ray_kernels.MAX_FRAMES`)."""
+    device = resolve_device(device)
+    if budget is None:
+        budget = memory_budget(device)
+    n_pad = round_up(max(n_atoms, 1), pad_multiple())
+    n_win, _, l1, _ = static_sizes(max_diameter, cfg)
+    k = open_cap(n_win, cfg.open_cap_frac) or n_win
+    per_frame = frame_bytes(n_pad, n_win, k, l1, cfg.max_windows, device.type)
+    return max(1, min(MAX_FRAMES, int(budget // per_frame)))
+
+
+def chunk_plan(n_frames: int, c: int) -> list[tuple[int, int]]:
+    """``(lo, hi)`` frame ranges of at most ``c`` frames.  (The JAX
+    package padded every chunk to a few compiled shapes; eager PyTorch
+    compiles nothing, so the last chunk simply runs short.)"""
+    return [(lo, min(lo + c, n_frames)) for lo in range(0, n_frames, c)]
+
+
+def frame_max_diameters(
+    elements: np.ndarray, coords: np.ndarray, device: torch.device | str
+) -> np.ndarray:
+    """Exact vdW-corrected maximum diameter of every frame (F, N, 3) of
+    one element list, in float64 on ``device`` (chunked by memory); the
+    sweep pins its sampling sizes from these."""
+    device = resolve_device(device)
+    vdw = torch.as_tensor(
+        tables.ELEMENT_VDW[tables.element_ids(elements)], dtype=torch.float64,
+        device=device,
+    )
+    n = coords.shape[1]
+    step = max(1, int(2**28 // (24 * max(n, 1) ** 2)))
+    out = np.empty(len(coords), dtype=np.float64)
+    for lo in range(0, len(coords), step):
+        c = torch.as_tensor(coords[lo : lo + step], dtype=torch.float64, device=device)
+        d = pairwise_distances(c, c) + vdw[:, None] + vdw[None, :]
+        out[lo : lo + step] = d.amax((-2, -1)).cpu().numpy()
+    return out
+
+
+def _largest_exact_maxd(systems, device: torch.device) -> float:
+    """Exact maximum diameter of the largest member of ``systems``,
+    computed on the device in float64 chunks."""
+    best = 0.0
+    for lo in range(0, len(systems), 256):
+        part = systems[lo : lo + 256]
+        mols = encode_batch(part, dtype=torch.float64, device=device)
+        d = pairwise_distances(mols.coords, mols.coords)
+        d = d + mols.vdw[..., :, None] + mols.vdw[..., None, :]
+        valid = mols.mask[..., :, None] & mols.mask[..., None, :]
+        best = max(best, float(torch.where(valid, d, -1e30).amax()))
+    return best
+
+
+def dispatch_batch(
+    systems: list[tuple[np.ndarray, np.ndarray]],
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    reference_max_diameter: float | None = None,
+    pad_atoms: int | None = None,
+    device: torch.device | str = "cuda",
+):
+    """Encode one batch and queue its device pipeline; returns a handle
+    for :func:`collect_batch` (the work runs asynchronously on the card
+    until the collect fetches it).
+
+    The static sizes cover the largest member: ray paths from the
+    batch's bound, sampling counts from ``reference_max_diameter``
+    (default: the batch's exact largest maximum diameter, reduced on the
+    device).
+    """
+    device = resolve_device(device)
+    mols = encode_batch(systems, pad_to=pad_atoms, device=device)
+    bounds = [max_dim_bound(e, c) for e, c in systems]
+    if reference_max_diameter is None:
+        reference_max_diameter = _largest_exact_maxd(systems, device)
+    n_win, n_avg, l1, l2 = static_sizes(reference_max_diameter, cfg)
+    _, _, l1_b, l2_b = static_sizes(max(bounds), cfg)
+    sizes = (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+    return (_analysis.run_pipeline(mols, sizes, cfg), len(systems), cfg, reference_max_diameter)
+
+
+def collect_batch(handle) -> list[dict]:
+    """Fetch a dispatched batch (one device-to-host transfer) and convert
+    it to properties dicts (with the escalation markers still in)."""
+    flat_dev, b, cfg, _ = handle
+    with stage("sweep_fetch"):
+        flat = flat_dev.cpu().numpy()
+    with stage("sweep_to_dicts"):
+        results = to_properties_dicts_bulk(flat[:b], cfg.max_windows)
+    METRICS.count("molecules_analysed", b)
+    METRICS.count(
+        "windows_found",
+        sum(
+            0 if r["windows"]["diameters"] is None else len(r["windows"]["diameters"])
+            for r in results
+        ),
+    )
+    return results
+
+
+def analyze_batch(
+    systems: list[tuple[np.ndarray, np.ndarray]],
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    reference_max_diameter: float | None = None,
+    pad_atoms: int | None = None,
+    device: torch.device | str = "cuda",
+) -> list[dict]:
+    """Analyse many (elements, coordinates) systems as device batches on
+    ``device`` (the card unless the caller asks for the CPU); one
+    reference-schema properties dict per system.
+
+    The sampling-point count is one static for the batch, from
+    ``reference_max_diameter`` (default: the largest member's maximum
+    diameter), so trajectory frames of one system match the reference's
+    per-frame count except at log-scale boundaries; pass a value to pin
+    it.  A batch larger than :func:`max_safe_batch` splits into chunks
+    that share the pin.
+    """
+    if not systems:
+        return []
+    device = resolve_device(device)
+    n_max = max(len(e) for e, _ in systems)
+    maxd = max(max_dim_bound(e, c) for e, c in systems)
+    safe = max_safe_batch(n_max, maxd, cfg, device)
+    if len(systems) > safe:
+        if reference_max_diameter is None:
+            reference_max_diameter = _largest_exact_maxd(systems, device)
+        logger.info(
+            "splitting batch of %d into memory-safe chunks of %d",
+            len(systems), safe,
+        )
+        out: list[dict] = []
+        for lo in range(0, len(systems), safe):
+            out.extend(
+                analyze_batch(
+                    systems[lo : lo + safe], cfg,
+                    reference_max_diameter=reference_max_diameter,
+                    pad_atoms=pad_atoms, device=device,
+                )
+            )
+        return out
+
+    with stage("batch_analysis"):
+        handle = dispatch_batch(
+            systems, cfg, reference_max_diameter=reference_max_diameter,
+            pad_atoms=pad_atoms, device=device,
+        )
+        results = collect_batch(handle)
+    # the retry keeps the pin the dispatch resolved, so the escalated
+    # subset keeps the batch's sampling-point count
+    return retry_saturated_windows(
+        systems, results, cfg, reference_max_diameter=handle[3],
+        pad_atoms=pad_atoms, device=device,
+    )
+
+
+def sweep_uniform(
+    elements: np.ndarray,
+    coords: np.ndarray,
+    maxd_per_frame: np.ndarray,
+    on_batch,
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    batch_size: int | None = None,
+    reference_max_diameter: float | None = None,
+    device: torch.device | str = "cuda",
+) -> None:
+    """Full-analysis sweep over frames (F, N, 3) that share one element
+    list, in chunks of ``batch_size`` frames (default: the largest
+    memory-safe batch).
+
+    The per-atom fields move to the device once; only each chunk's
+    coordinates move per chunk.  ``maxd_per_frame`` (F,) are the frames'
+    exact maximum diameters: their maximum pins the sampling sizes
+    unless ``reference_max_diameter`` is given.  ``on_batch(positions,
+    results)`` receives each chunk's frame positions and dicts, in order.
+    """
+    f_total, n, _ = coords.shape
+    if f_total == 0:
+        return
+    device = resolve_device(device)
+    bound = float(np.max(maxd_per_frame))
+    pin = float(reference_max_diameter) if reference_max_diameter is not None else bound
+    n_win, n_avg, l1, l2 = static_sizes(pin, cfg)
+    # path lengths cover the largest member even under a smaller pin
+    _, _, l1_b, l2_b = static_sizes(bound, cfg)
+    sizes = (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+    dtype = default_dtype(device)
+    np_dtype = numpy_dtype(dtype)
+    n_pad = round_up(max(n, 1), pad_multiple())
+
+    # constant per-atom fields: one host encode, one transfer
+    _, mass, vdw, cov, mask = encode_host(elements, np.zeros((n, 3)), n_pad, np_dtype)
+    rows = [torch.as_tensor(a, device=device) for a in (mass, vdw, cov, mask)]
+    fields_cache: dict[int, tuple] = {}
+
+    def fields_for(m: int) -> tuple:
+        if m not in fields_cache:
+            fields_cache[m] = tuple(r.expand(m, n_pad).contiguous() for r in rows)
+        return fields_cache[m]
+
+    c = max_safe_batch(n_pad, pin, cfg, device) if batch_size is None else int(batch_size)
+    c = max(1, min(c, f_total))
+    esc_key = (hash(np.asarray(elements).tobytes()), n_pad, cfg)
+    live = LEARNED_CAPS.get(esc_key, cfg)
+
+    for lo, hi in chunk_plan(f_total, c):
+        m = hi - lo
+        with stage("sweep_assemble"):
+            buf = np.full((m, n_pad, 3), FAR_AWAY, dtype=np_dtype)
+            buf[:, :n] = coords[lo:hi]
+        with stage("sweep_h2d"):
+            tight = torch.as_tensor(buf, device=device)
+        chunk_cfg = live
+        with stage("sweep_step"):
+            flat = _analysis.run_pipeline(MolArrays(tight, *fields_for(m)), sizes, chunk_cfg)
+            # the span holds the chunk's device time (the fetch below
+            # would wait for it anyway), not just the enqueue
+            if tight.is_cuda:
+                torch.cuda.synchronize(tight.device)
+        results = collect_batch((flat, m, chunk_cfg, pin))
+        esc: dict = {}
+        results = retry_saturated_windows(
+            [(elements, coords[i]) for i in range(lo, hi)],
+            results, chunk_cfg, escalation_sink=esc,
+            reference_max_diameter=pin, device=device,
+        )
+        # sticky escalation for later chunks, only when the marker is
+        # endemic (a majority of the chunk): a stray frame is cheaper
+        # through the per-chunk retry it just took
+        endemic = m // 2
+        nxt = live
+        if esc.get("open_overflow", 0) > endemic:
+            frac = 2.0 * chunk_cfg.open_cap_frac
+            if frac > nxt.open_cap_frac:
+                nxt = dataclasses.replace(nxt, open_cap_frac=frac)
+        if esc.get("window_sat", 0) > endemic:
+            w = min(2 * chunk_cfg.max_windows, MAX_WINDOWS_CEILING)
+            if w > nxt.max_windows:
+                nxt = dataclasses.replace(nxt, max_windows=w)
+        # memory guard: keep the per-chunk retry when the escalated
+        # config no longer fits a chunk
+        if nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
+            live = nxt
+            LEARNED_CAPS.put(esc_key, live)
+        with stage("sweep_on_batch"):
+            on_batch(np.arange(lo, hi, dtype=np.int64), results)
+
+
+def retry_saturated_windows(
+    systems,
+    results: list[dict],
+    cfg: AnalysisConfig,
+    escalation_sink: dict | None = None,
+    **analyze_kwargs,
+) -> list[dict]:
+    """Re-run the molecules whose device run outgrew a static cap
+    (counterpart of ``pywindow_tpu.parallel.batch.retry_saturated_windows``).
+
+    - ``_open_cap_overflow``: the open rays overflowed the compaction
+      cap: re-run with a doubled ``open_cap_frac``;
+    - ``_opt_budget_exceeded``: an optimiser stopped on its fast budget:
+      re-run at the full budgets;
+    - ``_window_cap_saturated``: as many clusters as window slots:
+      re-run with a doubled ``max_windows`` (up to
+      :data:`~pywindow_torch.config.MAX_WINDOWS_CEILING`).
+
+    Pops the markers from every result; ``escalation_sink`` receives the
+    counts per marker (``open_overflow``, ``budget``, ``window_sat``).
+    """
+    over = [i for i, r in enumerate(results) if r.pop("_open_cap_overflow", False)]
+    if escalation_sink is not None:
+        escalation_sink["open_overflow"] = len(over)
+    if over:
+        cfg2 = dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac)
+        redo = analyze_batch([systems[i] for i in over], cfg2, **analyze_kwargs)
+        for i, r in zip(over, redo):
+            results[i] = r
+
+    budget = [i for i, r in enumerate(results) if r.pop("_opt_budget_exceeded", False)]
+    if escalation_sink is not None:
+        escalation_sink["budget"] = len(budget)
+    if budget and cfg.fast_budgets:
+        cfg2 = dataclasses.replace(cfg, fast_budgets=False)
+        redo = analyze_batch([systems[i] for i in budget], cfg2, **analyze_kwargs)
+        for i, r in zip(budget, redo):
+            results[i] = r
+
+    idxs = [i for i, r in enumerate(results) if r.pop("_window_cap_saturated", False)]
+    if escalation_sink is not None:
+        escalation_sink["window_sat"] = len(idxs)
+    if not idxs:
+        return results
+    if cfg.max_windows >= MAX_WINDOWS_CEILING:
+        logger.warning(
+            "%d molecule(s) still saturate max_windows=%d at the escalation "
+            "ceiling; raise AnalysisConfig.max_windows",
+            len(idxs), cfg.max_windows,
+        )
+        return results
+    cfg2 = dataclasses.replace(cfg, max_windows=2 * cfg.max_windows)
+    redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
+    for i, r in zip(idxs, redo):
+        results[i] = r
+    return results

@@ -88,7 +88,7 @@ def _check_against_gold(props, gold, tol):
 @pytest.mark.parametrize("name", ["PUDXES", "YAQHOQ", "BATVUP"])
 def test_full_analysis_float64_matches_jax_and_goldens(name):
     mol, jmol = _port(name), _jax(name)
-    props, ref = mol.full_analysis(), jmol.full_analysis()
+    props, ref = mol.full_analysis(device="cpu"), jmol.full_analysis()
     assert mol.MW == pytest.approx(jmol.MW, abs=EXACT)
     np.testing.assert_allclose(
         props["centre_of_mass"], ref["centre_of_mass"], atol=EXACT, rtol=0
@@ -136,7 +136,7 @@ def test_full_analysis_float32_stable_matches_jax_and_goldens(monkeypatch):
     monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
     monkeypatch.setenv("PYWINDOW_TPU_FORCE_F32", "1")
     mol = _port("PUDXES")
-    props = mol.full_analysis()
+    props = mol.full_analysis(device="cpu")
     ref = _jax("PUDXES").full_analysis()
     for key in ("maximum_diameter", "pore_diameter", "pore_diameter_opt"):
         assert props[key]["diameter"] == pytest.approx(ref[key]["diameter"], abs=0.01)
@@ -152,12 +152,12 @@ def test_escalations_and_getters():
     """All three host escalations of ``analyze`` reproduce the default
     run: an overflowing open-ray cap, a saturated window cap, and fast
     optimiser budgets that cap out."""
-    base = _port("PUDXES").full_analysis()
+    base = _port("PUDXES").full_analysis(device="cpu")
     cfg = pt.AnalysisConfig(
         open_cap_frac=0.05, max_windows=2, fast_opt_maxiter=1, fast_nm_maxiter=2
     )
     mol = pt.Molecule(_port("PUDXES").mol, config=cfg)
-    props = mol.full_analysis()
+    props = mol.full_analysis(device="cpu")
     np.testing.assert_allclose(
         np.sort(_windows(props)), np.sort(_windows(base)), atol=1e-10
     )
@@ -165,7 +165,7 @@ def test_escalations_and_getters():
     assert mol.calculate_pore_diameter_opt() == pytest.approx(
         base["pore_diameter_opt"]["diameter"], abs=1e-10
     )
-    fresh = _port("YAQHOQ")
+    fresh = pt.Molecule(_port("YAQHOQ").mol, device="cpu")
     assert fresh.calculate_windows() is None  # runs the analysis itself
     assert fresh.calculate_pore_volume() == pytest.approx(
         4.0 / 3.0 * np.pi * (fresh.pore_diameter / 2) ** 3
@@ -196,7 +196,7 @@ def test_config_variants_match_jax(fields):
     ref = pw.Molecule({"elements": elements, "coordinates": coords}, config=jcfg).full_analysis()
     props = pt.Molecule(
         {"elements": elements, "coordinates": coords}, config=torch_config(jcfg)
-    ).full_analysis()
+    ).full_analysis(device="cpu")
     opt, ref_opt = props["pore_diameter_opt"], ref["pore_diameter_opt"]
     np.testing.assert_allclose(
         opt["centre_of_mass"], ref_opt["centre_of_mass"], atol=OPTIMISED, rtol=0

@@ -29,12 +29,12 @@ def _mols(case):
 def test_encode_matches_jax_field_for_field():
     elements, coords = load_structure("BATVUP")
     jm = jenc.encode(elements, coords, dtype=np.float64)
-    tm = tenc.encode(elements, coords)
+    tm = tenc.encode_batch([(elements, coords)])
     assert tm.coords.dtype == torch.float64
     for a, b in zip(jm, tm):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        np.testing.assert_array_equal(np.asarray(a), b[0].numpy())
     # padded slots: parked far away, vdW 0, masked
-    assert tm.coords.shape[0] % 8 == 0
+    assert tm.coords.shape[1] % 8 == 0
     assert bool((tm.coords[~tm.mask] == tenc.FAR_AWAY).all())
     assert bool((tm.vdw[~tm.mask] == 0).all())
 
@@ -42,9 +42,9 @@ def test_encode_matches_jax_field_for_field():
 def test_encode_float32_and_pad_errors(monkeypatch):
     elements, coords = load_structure("YAQHOQ")
     monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
-    assert tenc.encode(elements, coords).coords.dtype == torch.float32
+    assert tenc.encode_batch([(elements, coords)]).coords.dtype == torch.float32
     with pytest.raises(ValueError, match="pad_to"):
-        tenc.encode(elements, coords, pad_to=len(elements) - 1)
+        tenc.encode_batch([(elements, coords)], pad_to=len(elements) - 1)
 
 
 @pytest.mark.parametrize("case", ["PUDXES", "BATVUP", "random"])
@@ -115,8 +115,11 @@ def test_clearance_field_diff_and_probe(case):
     d_j, g_j = jg.pore_stable_probe(jm)(
         jnp.asarray(x), jnp.asarray(disp[-1]), jnp.asarray(h)
     )
-    d_t, g_t = tg.pore_stable_probe(tm)(t(x)[None], t(disp[-1])[None], t(h)[None])
-    assert float(d_t[0]) == pytest.approx(float(d_j), abs=TOL)
+    # the port's pore probe (lbfgsb_kernels' plain version) from the same
+    # symbolic differences
+    d_t = -2.0 * tg.clearance_diff(t(x), t(disp[-1])[None], tm)[0]
+    g_t = -2.0 * tg.clearance_diff(t(x + disp[-1]), torch.diag(t(h)), tm) / t(h)
+    assert float(d_t) == pytest.approx(float(d_j), abs=TOL)
     # FD quotients of symbolic differences (no 1/h amplification of an
     # absolute-f rounding error)
-    np.testing.assert_allclose(g_t[0].numpy(), np.asarray(g_j), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=1e-9, rtol=0)

@@ -1,9 +1,17 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-These tests need a CUDA device and ``nvcc``; without a card they skip.
-They import neither JAX nor the test conftest's helpers, so on a machine
-without JAX they run as
-``python -m pytest --noconftest tests/test_torch_kernels.py``.
+These tests need a CUDA device and ``nvcc``; they carry the ``cuda``
+marker and skip from the ``cuda`` fixture without a card.  They import
+neither JAX nor the test conftest's helpers, so on the card's machine
+(which has no JAX) they run as
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+
+Tolerances: the ray kernels round like their plain versions in float64
+(flags and steps equal, distances within 1e-9 Å; float32 within 1e-4 Å,
+with a few grazing rays allowed to flip); the optimiser kernels run
+float64 and stop where the plain drivers stop: x within 1e-6 Å and the
+same ``capped`` flag on every lane, or, on a flat ridge, objective
+values within 1e-9.
 """
 
 import pathlib
@@ -13,8 +21,19 @@ import pytest
 import torch
 
 import pywindow_torch as pt
-from pywindow_torch.ops import _cuda, cluster, cluster_kernels, ray_kernels, rays
+from pywindow_torch.ops import (
+    _cuda,
+    cluster,
+    cluster_kernels,
+    lbfgsb_kernels,
+    nm_kernels,
+    ray_kernels,
+    rays,
+)
 from pywindow_torch.ops.encoding import MolArrays
+
+DATA = pathlib.Path(__file__).parent / "data"
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -24,23 +43,48 @@ def cuda():
     return torch.device("cuda")
 
 
-def _mol(n, seed, dtype, device, pad=8):
+def _mol(n, seed, dtype, device, pad=8, frames=None):
+    """Random molecule(s): (N_pad, 3) or, with ``frames``, (B, N_pad, 3)
+    with the padded atoms parked at 1e6 with vdW 0."""
     rng = np.random.default_rng(seed)
+    b = frames or 1
     n_pad = ((n + pad - 1) // pad) * pad
-    coords = np.full((n_pad, 3), 1.0e6)
-    coords[:n] = rng.normal(size=(n, 3)) * 6
-    vdw = np.zeros(n_pad)
-    vdw[:n] = rng.uniform(1.2, 2.0, n)
-    mask = np.arange(n_pad) < n
-    f = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    coords = np.full((b, n_pad, 3), 1.0e6)
+    coords[:, :n] = rng.normal(size=(b, n, 3)) * 6
+    vdw = np.zeros((b, n_pad))
+    vdw[:, :n] = rng.uniform(1.2, 2.0, (b, n))
+    mask = np.broadcast_to(np.arange(n_pad) < n, (b, n_pad)).copy()
+    if frames is None:
+        coords, vdw, mask = coords[0], vdw[0], mask[0]
+
+    def f(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
     return MolArrays(f(coords), f(vdw), f(vdw), f(vdw), torch.tensor(mask, device=device))
+
+
+def _cages(b, seed, device, n=96, pad=104):
+    """Hollow random shells (a pore at the centre), float64, (B, N_pad)."""
+    rng = np.random.default_rng(seed)
+    coords = np.full((b, pad, 3), 1.0e6)
+    vdw = np.zeros((b, pad))
+    for i in range(b):
+        pts = rng.normal(size=(n, 3))
+        pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+        coords[i, :n] = pts * rng.uniform(5.0, 8.0) + rng.normal(scale=0.3, size=(n, 3))
+        vdw[i, :n] = rng.uniform(1.2, 1.8, n)
+    return (
+        torch.tensor(coords, dtype=torch.float64, device=device),
+        torch.tensor(vdw, dtype=torch.float64, device=device),
+    )
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("want_exit", [True, False])
 def test_ray_exit_kernel_matches_plain(cuda, dtype, want_exit):
-    mol = _mol(150, 1, dtype, cuda)
-    pts = rays.golden_spiral(700, torch.tensor(14.0, dtype=dtype, device=cuda))
+    mol = _mol(150, 1, dtype, cuda, frames=3)
+    radius = torch.tensor([14.0, 12.5, 15.0], dtype=dtype, device=cuda)
+    pts = rays.golden_spiral(700, radius)
     unit, rel, origin = rays._ray_frame(pts, mol)
     before = _cuda.LAUNCHES["ray_exit"]
     hk, ek = ray_kernels.ray_exit(unit, rel, mol.vdw, origin, want_exit)
@@ -51,7 +95,7 @@ def test_ray_exit_kernel_matches_plain(cuda, dtype, want_exit):
     if dtype == torch.float64:
         assert bool(agree.all())
     else:
-        assert int((~agree).sum()) <= 0.005 * len(hk)
+        assert int((~agree).sum()) <= 0.005 * hk.numel()
     both = hk & hp
     tol = 1e-9 if dtype == torch.float64 else 1e-4
     if want_exit:
@@ -62,8 +106,9 @@ def test_ray_exit_kernel_matches_plain(cuda, dtype, want_exit):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_path_sweep_kernel_matches_plain(cuda, dtype):
-    mol = _mol(168, 2, dtype, cuda)
-    vectors = rays.golden_spiral(384, torch.tensor(11.0, dtype=dtype, device=cuda))
+    mol = _mol(168, 2, dtype, cuda, frames=3)
+    radius = torch.tensor([11.0, 10.3, 12.2], dtype=dtype, device=cuda)
+    vectors = rays.golden_spiral(383, radius)
     _, chunks = rays._chunks(vectors, 1.0)
     before = _cuda.LAUNCHES["path_sweep"]
     ok_k, pos_k, c_k = ray_kernels.path_sweep(vectors, chunks, mol.coords, mol.vdw, 16)
@@ -75,44 +120,173 @@ def test_path_sweep_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fine_path_kernel_matches_plain(cuda, dtype):
+    """B = 5 frames of W = 8 rays (B * W not a multiple of anything the
+    kernel tiles by), 150 atoms padded to 152, 120 fine steps."""
+    mol = _mol(150, 4, dtype, cuda, frames=5)
+    rng = np.random.default_rng(4)
+    vec = rng.normal(size=(5, 8, 3))
+    vec = vec / np.linalg.norm(vec, axis=-1, keepdims=True) * rng.uniform(6, 11, (5, 8, 1))
+    vectors = torch.tensor(vec, dtype=dtype, device=cuda)
+    _, chunks = rays._chunks(vectors, 0.1)
+    before = _cuda.LAUNCHES["fine_path"]
+    ok_k, pos_k, c_k = ray_kernels.fine_path(vectors, chunks, mol.coords, mol.vdw, 120)
+    assert _cuda.LAUNCHES["fine_path"] == before + 1
+    ok_p, pos_p, c_p = ray_kernels.fine_path_plain(vectors, chunks, mol.coords, mol.vdw, 120)
+    torch.cuda.synchronize()
+    assert torch.equal(ok_k, ok_p) and torch.equal(pos_k, pos_p)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    assert float((c_k - c_p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("k", [384, 1000])
 def test_dbscan_kernel_matches_plain(cuda, dtype, k):
     rng = np.random.default_rng(k)
-    centres = rng.normal(size=(5, 3))
-    pts = np.concatenate(
-        [c * 5 + rng.normal(scale=0.4, size=(k // 5, 3)) for c in centres]
-        + [rng.normal(scale=6, size=(k - 5 * (k // 5), 3))]
-    )
-    points = torch.tensor(pts, dtype=dtype, device=cuda)
-    valid = torch.tensor(rng.random(k) > 0.1, device=cuda)
-    eps = torch.tensor(0.9, dtype=dtype, device=cuda)
+    sets = []
+    for _ in range(2):
+        centres = rng.normal(size=(5, 3))
+        sets.append(
+            np.concatenate(
+                [c * 5 + rng.normal(scale=0.4, size=(k // 5, 3)) for c in centres]
+                + [rng.normal(scale=6, size=(k - 5 * (k // 5), 3))]
+            )
+        )
+    points = torch.tensor(np.stack(sets), dtype=dtype, device=cuda)
+    valid = torch.tensor(rng.random((2, k)) > 0.1, device=cuda)
+    eps = torch.tensor([0.9, 1.1], dtype=dtype, device=cuda)
     labels_k, n_k = cluster_kernels.dbscan(points, valid, eps, 5, 4)
     labels_p, n_p = cluster.dbscan(points, valid, eps, 5, 4)
     assert torch.equal(labels_k, labels_p)
-    assert int(n_k) == int(n_p)
+    assert torch.equal(n_k.cpu(), n_p.cpu())
+
+
+def _assert_optimiser_lanes(x_k, f_k, cap_k, x_p, f_p, cap_p):
+    assert torch.equal(cap_k, cap_p)
+    dx = (x_k - x_p).abs().amax(-1)
+    off = dx > 1e-6
+    assert bool(((f_k - f_p).abs()[off] <= 1e-9).all()), (dx[off], (f_k - f_p)[off])
+
+
+def test_lbfgsb_stable_kernel_matches_plain_pore_lanes(cuda):
+    """d = 3: 13 pore-centre lanes (not a multiple of a warp's 32),
+    104-slot padded shells, from the COM within ±pore_r."""
+    coords, vdw = _cages(13, 5, cuda)
+    mask = vdw > 0
+    w = mask.double()
+    com = (coords * w[..., None]).sum(1) / w.sum(1, keepdim=True)
+    d = torch.sqrt(((coords - com[:, None]) ** 2).sum(-1)) - vdw
+    r = torch.where(mask, d, 1e30).amin(-1)[:, None]
+    args = (coords, vdw, torch.zeros_like(com), com, com - r, com + r)
+    kw = dict(emb=lbfgsb_kernels.EMB_XYZ, sign=-1.0, maxiter=40)
+    before = _cuda.LAUNCHES["lbfgsb_stable"]
+    x_k, f_k, _, _, cap_k = lbfgsb_kernels.lbfgsb_stable_flat(*args, **kw)
+    assert _cuda.LAUNCHES["lbfgsb_stable"] == before + 1
+    x_p, f_p, _, _, cap_p = lbfgsb_kernels.lbfgsb_stable_flat_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_optimiser_lanes(x_k, f_k, cap_k, x_p, f_p, cap_p)
+
+
+def test_lbfgsb_stable_kernel_matches_plain_z_lanes(cuda):
+    """d = 1: window-z lanes with the z-axis embedding, a lower bound and
+    an 'infinite' upper one."""
+    coords, vdw = _cages(9, 6, cuda)
+    rng = np.random.default_rng(6)
+    xy = torch.tensor(rng.normal(scale=0.5, size=(9, 2)), dtype=torch.float64, device=cuda)
+    origin = torch.cat([xy, torch.zeros_like(xy[:, :1])], -1)
+    x0 = torch.zeros((9, 1), dtype=torch.float64, device=cuda)
+    lo = torch.tensor(-rng.uniform(1, 4, (9, 1)), dtype=torch.float64, device=cuda)
+    up = torch.full_like(lo, 1e10)
+    kw = dict(emb=lbfgsb_kernels.EMB_Z, sign=1.0, maxiter=40)
+    x_k, f_k, _, _, cap_k = lbfgsb_kernels.lbfgsb_stable_flat_cuda(coords, vdw, origin, x0, lo, up, **kw)
+    x_p, f_p, _, _, cap_p = lbfgsb_kernels.lbfgsb_stable_flat_plain(coords, vdw, origin, x0, lo, up, **kw)
+    torch.cuda.synchronize()
+    _assert_optimiser_lanes(x_k, f_k, cap_k, x_p, f_p, cap_p)
+
+
+def test_nm_xy_kernel_matches_plain(cuda):
+    """11 (frame, window) lanes of padded shells, the 20 x 20 grid and
+    the polish, with a fast budget that caps some lanes."""
+    coords, vdw = _cages(11, 7, cuda)
+    rng = np.random.default_rng(7)
+    z = torch.tensor(rng.normal(scale=0.5, size=11), dtype=torch.float64, device=cuda)
+    half = torch.tensor(rng.uniform(1.0, 3.0, 11), dtype=torch.float64, device=cuda)
+    for maxiter in (400, 6):
+        before = _cuda.LAUNCHES["nm_xy"]
+        xy_k, f_k, cap_k = nm_kernels.nm_xy_flat(coords, vdw, z, half, brute_ns=20, maxiter=maxiter)
+        assert _cuda.LAUNCHES["nm_xy"] == before + 1
+        xy_p, f_p, cap_p = nm_kernels.nm_xy_flat_plain(coords, vdw, z, half, brute_ns=20, maxiter=maxiter)
+        torch.cuda.synchronize()
+        _assert_optimiser_lanes(xy_k, f_k, cap_k, xy_p, f_p, cap_p)
 
 
 def test_wrappers_raise_on_bad_inputs(cuda):
-    x = torch.zeros((10, 3), dtype=torch.float32, device=cuda)
+    x = torch.zeros((1, 10, 3), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
-        ray_kernels.ray_exit_cuda(x, x.double(), x[:, 0], x[0])
+        ray_kernels.ray_exit_cuda(x, x.double(), x[..., 0], x[:, 0])
+    strided = torch.zeros((1, 3, 10), dtype=torch.float32, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        ray_kernels.ray_exit_cuda(x.T.contiguous().T, x, x[:, 0].contiguous(), x[0])
+        ray_kernels.ray_exit_cuda(strided, x, x[..., 0].contiguous(), x[:, 0].contiguous())
+    coords = torch.zeros((2, 10, 3), dtype=torch.float64, device=cuda)
+    vdw = torch.ones((2, 10), dtype=torch.float64, device=cuda)
+    x3 = torch.zeros((2, 3), dtype=torch.float64, device=cuda)
+    x1 = torch.zeros((2, 1), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float64"):
+        lbfgsb_kernels.lbfgsb_stable_flat_cuda(
+            coords.float(), vdw.float(), x3.float(), x3.float(), x3.float(), x3.float()
+        )
+    with pytest.raises(ValueError, match="embedding"):
+        lbfgsb_kernels.lbfgsb_stable_flat_cuda(
+            coords, vdw, x3, x1, x1, x1, emb=lbfgsb_kernels.EMB_XYZ
+        )
+    with pytest.raises(ValueError, match="shape"):
+        nm_kernels.nm_xy_flat_cuda(coords, vdw, x1[:1, 0].contiguous(), x1[:, 0].contiguous())
 
 
 def test_full_analysis_on_the_card_matches_cpu_float32(cuda, monkeypatch):
-    """The slice end to end on the card against the same configuration
-    (float32 pipeline, float64 stable optimisers) on the CPU, and every
-    kernel launched on the way."""
-    path = pathlib.Path(__file__).parent / "data" / "PUDXES.xyz"
+    """The single-molecule path end to end on the card against the same
+    configuration (float32 pipeline, float64 stable optimisers) on the
+    CPU, and every kernel launched on the way."""
+    path = DATA / "PUDXES.xyz"
     mol = pt.MolecularSystem.load_file(path).system_to_molecule()
     _cuda.LAUNCHES.clear()
-    gpu = mol.full_analysis(device=cuda)
-    assert all(_cuda.LAUNCHES[k] > 0 for k in ("ray_exit", "path_sweep", "dbscan"))
+    gpu = mol.full_analysis()  # the card is the default device
+    for key in ("ray_exit", "path_sweep", "dbscan", "fine_path", "lbfgsb_stable", "nm_xy"):
+        assert _cuda.LAUNCHES[key] > 0, key
     monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
-    cpu = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis()
+    cpu = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis(device="cpu")
     for key in ("pore_diameter", "pore_diameter_opt", "maximum_diameter"):
         assert abs(gpu[key]["diameter"] - cpu[key]["diameter"]) < 1e-3
     np.testing.assert_allclose(
         np.sort(gpu["windows"]["diameters"]), np.sort(cpu["windows"]["diameters"]), atol=1e-3
     )
+
+
+def test_batched_launches_do_not_depend_on_batch_size(cuda):
+    """analyze_batch runs each kernel the same number of times for 2
+    frames as for 9, and every frame equals its own B = 1 run."""
+    from pywindow_torch.parallel import batch
+
+    elements, coords = _pudxes()
+    counts = []
+    for n_frames in (2, 9):
+        _cuda.LAUNCHES.clear()
+        handle = batch.dispatch_batch(
+            [(elements, coords)] * n_frames, reference_max_diameter=22.179369990077188
+        )
+        res = batch.collect_batch(handle)
+        counts.append(dict(_cuda.LAUNCHES))
+    assert counts[0] == counts[1]
+    one = batch.collect_batch(
+        batch.dispatch_batch([(elements, coords)], reference_max_diameter=22.179369990077188)
+    )[0]
+    for r in res:
+        assert r["pore_diameter_opt"]["diameter"] == pytest.approx(
+            one["pore_diameter_opt"]["diameter"], abs=1e-6
+        )
+
+
+def _pudxes():
+    lines = (DATA / "PUDXES.xyz").read_text().splitlines()[2:]
+    body = [ln.split() for ln in lines if ln.strip()]
+    return np.array([b[0] for b in body]), np.array([[float(v) for v in b[1:4]] for b in body])

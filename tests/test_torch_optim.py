@@ -19,6 +19,7 @@ from scipy.optimize import fmin, minimize
 
 from pywindow_torch.ops import geometry as tg
 from pywindow_torch.ops.lbfgsb import lbfgsb_minimize, lbfgsb_minimize_stable
+from pywindow_torch.ops.lbfgsb_kernels import lbfgsb_stable_flat_plain
 from pywindow_torch.ops.optim import brute_then_polish, nelder_mead
 from pywindow_tpu import tables
 from pywindow_tpu.ops import geometry as jg
@@ -201,12 +202,12 @@ def test_lbfgsb_cc3_pore_objective(name):
     )
     np.testing.assert_allclose(got.x[0].numpy(), ref.x, atol=1e-6)
 
-    stable = lbfgsb_minimize_stable(
-        tg.pore_stable_probe(tm),
-        lambda x: -2.0 * tg.clearance_field(x[:, None, :], tm)[:, 0],
+    # the stable driver through the pore stage's plain kernel version
+    stable_x, *_ = lbfgsb_stable_flat_plain(
+        tm.coords[None], tm.vdw[None], torch.zeros(1, 3, dtype=torch.float64),
         t(x0)[None], t(lo)[None], t(hi)[None],
     )
-    np.testing.assert_allclose(stable.x[0].numpy(), ref.x, atol=1e-6)
+    np.testing.assert_allclose(stable_x[0].numpy(), ref.x, atol=1e-6)
 
 
 def test_lanes_stop_independently():

@@ -72,8 +72,8 @@ def test_convert_carries_config_and_molecule_across():
 
     elements, coords = load_structure("YAQHOQ")
     jm, tm = both_encoded(elements, coords)
-    for a, b in zip(tm, tenc.encode(elements, coords)):
-        assert torch.equal(a, b)
+    for a, b in zip(tm, tenc.encode_batch([(elements, coords)])):
+        assert torch.equal(a, b[0])
     jm32, tm32 = both_encoded(elements, coords, np.float32)
     assert tm32.coords.dtype == torch.float32
     np.testing.assert_array_equal(tm32.coords.numpy(), np.asarray(jm32.coords))
