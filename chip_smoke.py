@@ -7,14 +7,22 @@ result line):
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions, float32 matmuls in full precision;
-2. build the six CUDA kernels from ``pywindow_torch/csrc``;
+2. build the seven CUDA kernels from ``pywindow_torch/csrc`` (one
+   ninja build, the sources compiled in parallel) and the native host
+   library from ``pywindow_torch/_native`` (``g++``);
 3. each kernel against its plain PyTorch version on the card, on the
    inputs the main paths give it (single runs of CC3 = PUDXES, 168
-   atoms, and REYMAL, 468 atoms, and the sweep's first 1,440-frame
-   chunk, whose neighbouring lanes hold different frames; the plain
-   versions take that chunk in slices of lanes), in float64 and, for
-   the ray kernels and DBSCAN, float32; warm timings and each kernel's
-   bound (the least time the card could take);
+   atoms, and REYMAL, 468 atoms, the sweep's first 1,440-frame chunk,
+   whose neighbouring lanes hold different frames, and the periodic
+   trajectory's first chunk, 48 frames of 8 cages; the plain versions
+   take a chunk in slices of lanes), in float64 and, for the ray kernels
+   and DBSCAN, float32; warm timings and each kernel's bound (the least
+   time the card could take).  ``clearance_min``, which no pipeline
+   stage calls, is held on three input sets in both dtypes: the shapes
+   of tests/test_pallas.py with the padding case, Q = 65,536 probes
+   against N = 4,096 atoms, and a 50^3 clearance grid over the rebuilt
+   periodic cell (1,344 atoms), with the time of ``torch.cdist`` +
+   ``amin`` beside it;
 4. the 7-system golden gate through
    ``MolecularSystem.load_file(...).system_to_molecule().full_analysis()``
    (the card is the default device; float32 pipeline, float64 optimiser
@@ -30,14 +38,31 @@ result line):
    windows against the frame alone at the sweep's sampling pin);
 7. the profile: host stage spans of one PUDXES and one REYMAL molecule,
    and the device's busy share and kernel launches of a molecule and of
-   a 1,440-frame chunk (``torch.profiler``).
+   a 1,440-frame chunk (``torch.profiler``);
+8. the periodic system: ``MolecularSystem.load_file(system_periodic.pdb)``,
+   ``rebuild_system()`` atom for atom against the reference's rebuild
+   (``system_periodic_rebuild.pdb``), then ``make_modular(rebuild=True)``
+   and ``analyze_molecules()`` on the card: every cage within 0.01 Å of
+   its orientation's reference row;
+9. a periodic PDB trajectory at full width: 96 frames of the 24.8 Å
+   cell (frame 0 the file itself, the others translated by a random
+   vector and wrapped into the cell) through ``PDB(path).analysis_batched(
+   modular=True, rebuild=True, forcefield="DLF", batch_size=48)``, 384
+   cage lanes per chunk: every frame 8 cages within 0.01 Å of their
+   rows; frames and molecules per second, host stage spans, the chunks'
+   device time, peak device memory and the native library's calls; then
+   frames 0, 31, 63 and 95 against the serial ``analysis()``;
+10. the clearance grid through ``clearance_min``, the entry point of the
+   one kernel that no pipeline stage calls.
 
-Phases 4-6 are the main paths: before each the kernel launch counters
-are set to 0 and after it every kernel must have launched; every call of
-the device pipeline must launch each kernel as often as every other
-(the count does not depend on the batch size), and no plain optimiser
-loop may run on a CUDA tensor.  The kernel record's launch counts are
-the sweep's own.
+Phases 4-6, 8, 9 and 10 are the main paths: before each the kernel
+launch counters are set to 0 and after it every kernel of the path must
+have launched (all six pipeline kernels; ``clearance_min`` on its grid);
+every call of the device pipeline must launch each kernel as often as
+every other (the count does not depend on the batch size), and no plain
+optimiser loop may run on a CUDA tensor.  The kernel record's launch
+counts are the DL_POLY sweep's own, and the grid's for
+``clearance_min``.
 
 The last three lines of standard output are the kernel record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -66,6 +91,24 @@ BATCH_GATE = 128
 #: 8 sweep frames held against the single-frame path: distinct fixture
 #: frames (frame % 20), from all three chunks
 SWEEP_SAMPLE = [0, 3, 1447, 1450, 2885, 2898, 4306, 4319]
+PERIODIC = DATA / "system_periodic.pdb"
+PERIODIC_FRAMES = 96
+PERIODIC_CHUNK = 48
+PERIODIC_LABEL = f"periodic{PERIODIC_CHUNK}"
+PERIODIC_SAMPLE = [0, 31, 63, 95]
+#: the periodic cell's cages (JAX package, CPU float64): two
+#: orientations, told apart by the average diameter (0.022 Å apart);
+#: every cage's optimised pore diameter is 5.39702017731003 Å
+PERIODIC_ROWS = {
+    13.832017514255472: [3.6289651224, 3.6356210328, 3.6370723704, 3.6377874601],
+    13.854084266982838: [3.6311549371, 3.6325120475, 3.6401548403, 3.6417727],
+}
+PERIODIC_PORE = 5.39702017731003
+#: the clearance grid: 50^3 probes at 0.496 Å over the 24.8 Å cell
+GRID_POINTS = 50
+#: (probes, atoms) of the large random clearance input, the regime the
+#: JAX kernel's docstring measured
+CLEARANCE_LARGE = (65536, 4096)
 
 #: the golden gate of scripts/validate_f32.py:37-97 (values from
 #: BASELINE.md: reference tests and example scripts; REYMAL windows from
@@ -117,7 +160,14 @@ KERNELS = {
     "lbfgsb_stable": ("pywindow_torch/csrc/lbfgsb_stable.cu", "pywindow_tpu/ops/lbfgsb_pallas.py:864"),
     "nm_xy": ("pywindow_torch/csrc/nm_xy.cu", "pywindow_tpu/ops/nm_pallas.py:283"),
     "fine_path": ("pywindow_torch/csrc/fine_path.cu", "pywindow_tpu/ops/pallas_kernels.py:799"),
+    "clearance_min": ("pywindow_torch/csrc/clearance_min.cu", "pywindow_tpu/ops/pallas_kernels.py:43"),
 }
+#: the kernels of the analysis pipeline (clearance_min has no caller)
+PIPELINE_KERNELS = tuple(k for k in KERNELS if k != "clearance_min")
+
+#: the device of the tensors this script makes itself (the entry points
+#: default to the card)
+DEVICE = "cuda"
 
 #: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM3 bytes
 #: per second, and operations per second outside the tensor cores
@@ -161,11 +211,18 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    from pywindow_torch import native
     from pywindow_torch.ops import _cuda
 
     t0 = time.perf_counter()
     _cuda.load_extension()
-    print(f"build: {time.perf_counter() - t0:.2f} s (into {_cuda.BUILD_DIR})")
+    t1 = time.perf_counter()
+    native.lib()
+    t2 = time.perf_counter()
+    print(
+        f"build: {len(_cuda.SOURCES) - 1} CUDA kernels {t1 - t0:.2f} s (one ninja build "
+        f"into {_cuda.BUILD_DIR}); native host library {t2 - t1:.2f} s (into {native.BUILD_DIR})"
+    )
 
 
 # -- phase 3: every kernel against its plain version --------------------------
@@ -175,6 +232,7 @@ def wrappers():
     """(module, wrapper attribute, kernel name, plain version) of every
     kernel the main path launches."""
     from pywindow_torch.ops import (
+        clearance_kernels,
         cluster,
         cluster_kernels,
         lbfgsb_kernels,
@@ -193,14 +251,18 @@ def wrappers():
          lbfgsb_kernels.lbfgsb_stable_flat_plain),
         (nm_kernels, "nm_xy_flat_cuda", "nm_xy", nm_kernels.nm_xy_flat_plain),
         (ray_kernels, "fine_path_cuda", "fine_path", ray_kernels.fine_path_plain),
+        (clearance_kernels, "clearance_min_cuda", "clearance_min",
+         clearance_kernels.clearance_min_plain),
     ]
 
 
 def record_inputs() -> dict[str, list[tuple[str, tuple, dict]]]:
     """Run the main paths once (warm-up only) and keep a copy of every
-    input each kernel wrapper received: single PUDXES and REYMAL runs and
+    input each kernel wrapper received: single PUDXES and REYMAL runs,
     the sweep's first 1,440-frame chunk (the 20 distinct fixture frames
-    cycled, so neighbouring lanes hold different frames)."""
+    cycled, so neighbouring lanes hold different frames) and the
+    periodic trajectory's first chunk (48 frames, 384 cages); then the
+    three input sets of ``clearance_min``."""
     import pywindow_torch as pt
 
     seen: dict[str, list] = {k: [] for k in KERNELS}
@@ -227,10 +289,63 @@ def record_inputs() -> dict[str, list[tuple[str, tuple, dict]]]:
             frames=list(range(SWEEP_CHUNK)), swap_atoms={"he": "H"}, forcefield="OPLS",
             batch_size=SWEEP_CHUNK,
         )
+        current[0] = PERIODIC_LABEL
+        pt.PDB(synth_periodic(PERIODIC_FRAMES)).analysis_batched(
+            frames=list(range(PERIODIC_CHUNK)), batch_size=PERIODIC_CHUNK, modular=True,
+            rebuild=True, forcefield="DLF",
+        )
     finally:
         for module, attr, fn in originals:
             setattr(module, attr, fn)
+    seen["clearance_min"] = clearance_inputs()
     return seen
+
+
+def clearance_inputs() -> list[tuple[str, tuple, dict]]:
+    """The input sets of ``clearance_min`` (float64; the comparison casts
+    them): the shapes and seeds of tests/test_pallas.py:17-56 with the
+    padding case, Q = 65,536 probes against N = 4,096 atoms (the regime
+    of the JAX kernel's docstring), and the periodic clearance grid."""
+
+    def f(*arrays):
+        return tuple(torch.tensor(a, dtype=torch.float64, device=DEVICE) for a in arrays)
+
+    calls = []
+    for q, n in ((100, 50), (1024, 256), (513, 129)):
+        rng = np.random.default_rng(q + n)
+        probes = rng.normal(size=(q, 3)) * 10
+        calls.append((f"pallas-test {q}x{n}", f(probes, rng.normal(size=(n, 3)) * 12, rng.uniform(1.0, 2.0, n)), {}))
+    rng = np.random.default_rng(3)
+    coords = np.concatenate([rng.normal(size=(40, 3)) * 5, np.full((24, 3), 1.0e6)])
+    vdw = np.concatenate([rng.uniform(1, 2, 40), np.zeros(24)])
+    calls.append(("pallas-test padding", f(rng.normal(size=(64, 3)) * 5, coords, vdw), {}))
+    q, n = CLEARANCE_LARGE
+    rng = np.random.default_rng(q)
+    calls.append((
+        f"Q{q}xN{n}",
+        f(rng.uniform(-20, 20, (q, 3)), rng.normal(size=(n, 3)) * 12, rng.uniform(1.0, 2.0, n)),
+        {},
+    ))
+    calls.append(("periodic grid", periodic_grid(torch.float64), {}))
+    return calls
+
+
+def periodic_grid(dtype) -> tuple:
+    """(probes, coords, vdw) of the clearance grid: 50^3 probes at the
+    voxel centres of the 24.8 Å cell against the rebuilt cell's atoms."""
+    import pywindow_torch as pt
+    from pywindow_torch import tables
+
+    system = pt.MolecularSystem.load_file(PERIODIC)
+    rebuilt = system.rebuild_system().system
+    a = float(system.system["unit_cell"][0])
+    axis = (np.arange(GRID_POINTS) + 0.5) * (a / GRID_POINTS)
+    probes = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
+    vdw = tables.ELEMENT_VDW[tables.element_ids(rebuilt["elements"])]
+    return tuple(
+        torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=DEVICE)
+        for x in (probes, rebuilt["coordinates"], vdw)
+    )
 
 
 def time_ms(fn) -> float:
@@ -261,6 +376,7 @@ def time_ms(fn) -> float:
 PLAIN_LANES = {
     "ray_exit": (1, 128), "path_sweep": (2, 128), "fine_path": (2, 128),
     "dbscan": (0, 128), "lbfgsb_stable": (0, 1 << 20), "nm_xy": (0, 1024),
+    "clearance_min": (0, 8192),
 }
 
 
@@ -395,6 +511,27 @@ def compare_nm(args, kwargs, dtype):
     return _compare_lanes("nm_xy", xy_k, f_k, cap_k, xy_p, f_p, cap_p)
 
 
+def compare_clearance(args, kwargs, dtype):
+    """Equal to the plain version: the same difference-form distances
+    rounded op by op, and an exact minimum (held at 1e-12 Å in float64
+    and 1e-5 Å in float32; the largest difference is printed)."""
+    from pywindow_torch.ops import clearance_kernels
+
+    probes, coords, vdw = _as(args, dtype)
+    got = clearance_kernels.clearance_min_cuda(probes, coords, vdw)
+    ref = plain_call("clearance_min", clearance_kernels.clearance_min_plain, probes, coords, vdw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(err <= (1e-12 if dtype == torch.float64 else 1e-5), f"clearance_min {dtype}: differs by {err}")
+    return err
+
+
+def cdist_amin(probes, coords, vdw):
+    """The two-call library yardstick of clearance_min (the port never
+    calls it)."""
+    return (torch.cdist(probes, coords) - vdw).amin(1)
+
+
 COMPARE = {
     "ray_exit": (compare_ray_exit, (torch.float64, torch.float32)),
     "path_sweep": (compare_path_sweep, (torch.float64, torch.float32)),
@@ -402,6 +539,7 @@ COMPARE = {
     "lbfgsb_stable": (compare_lbfgsb, (torch.float64,)),
     "nm_xy": (compare_nm, (torch.float64,)),
     "fine_path": (compare_fine_path, (torch.float64, torch.float32)),
+    "clearance_min": (compare_clearance, (torch.float64, torch.float32)),
 }
 
 
@@ -439,6 +577,8 @@ def bound(key, args, kwargs, out) -> tuple[float, str]:
         lanes, n = args[0].shape[0], args[0].shape[1]
         ns = kwargs.get("brute_ns", 20)
         ops = lanes * n * (12 + 22 * (ns * ns + 3))
+    elif key == "clearance_min":
+        ops = 11 * args[0].shape[0] * args[1].shape[0]
     else:
         raise KeyError(key)
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
@@ -460,35 +600,52 @@ def phase_kernels() -> dict[str, dict]:
                 if dtype == dtypes[-1]:
                     worst = max(worst, err)
         kernel_fn, plain_fn = fns[key]
+        if key == "clearance_min":
+            # every input set in float32, the card's pipeline dtype, and
+            # the two large ones in float64 too; the record's row: the
+            # periodic grid in float32 (the first row timed)
+            large = ("periodic grid", "Q{}xN{}".format(*CLEARANCE_LARGE))
+            timed = [
+                (label, _as(args, dt), kwargs)
+                for label, args, kwargs in sorted(calls, key=lambda c: c[0] != large[0])
+                for dt in ((torch.float32, torch.float64) if label in large else (torch.float32,))
+            ]
+        else:
+            # the record's row: the PUDXES single run (the first)
+            timed = [
+                next(c for c in calls if c[0] == label)
+                for label in ("PUDXES", "REYMAL", SWEEP_LABEL, PERIODIC_LABEL)
+                if any(c[0] == label for c in calls)
+            ]
         rows = []
-        for label in ("PUDXES", "REYMAL", SWEEP_LABEL):
-            picked = [c for c in calls if c[0] == label][:1]
-            for _, args, kwargs in picked:
-                ms = time_ms(lambda a=args, k=kwargs: kernel_fn(*a, **k))
-                plain_ms = time_ms(lambda a=args, k=kwargs: plain_call(key, plain_fn, *a, **k))
-                out = kernel_fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                bound_ms, bound_by = bound(key, args, kwargs, out)
-                shape = tuple(next(a for a in args if torch.is_tensor(a)).shape)
-                rows.append((label, shape, ms, plain_ms, bound_ms, bound_by))
+        for label, args, kwargs in timed:
+            ms = time_ms(lambda a=args, k=kwargs: kernel_fn(*a, **k))
+            plain_ms = time_ms(lambda a=args, k=kwargs: plain_call(key, plain_fn, *a, **k))
+            library_ms = time_ms(lambda a=args: cdist_amin(*a)) if key == "clearance_min" else None
+            out = kernel_fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            bound_ms, bound_by = bound(key, args, kwargs, out)
+            shape = tuple(next(a for a in args if torch.is_tensor(a)).shape)
+            rows.append((ms, plain_ms, bound_ms, bound_by, library_ms))
+            library = "" if library_ms is None else f", cdist+amin {library_ms:.4f} ms"
+            print(
+                f"  {key} {label} {shape} {args[0].dtype}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}){library}"
+            )
+            if key == "lbfgsb_stable":
+                nit = out[2].to(torch.int64)
                 print(
-                    f"  {key} {label} {shape} {args[0].dtype}: kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+                    f"    iterations per lane: max {int(nit.max())}, "
+                    f"total {int(nit.sum())} over {nit.numel()} lanes"
                 )
-                if key == "lbfgsb_stable":
-                    nit = out[2].to(torch.int64)
-                    print(
-                        f"    iterations per lane: max {int(nit.max())}, "
-                        f"total {int(nit.sum())} over {nit.numel()} lanes"
-                    )
         print(
-            f"kernel {key}: {len(calls)} main-path calls checked, "
+            f"kernel {key}: {len(calls)} calls checked, "
             f"max abs err {worst:.3e} ({dtypes[-1]})"
         )
-        _, _, ms, plain_ms, bound_ms, bound_by = rows[0]  # the PUDXES single run
+        ms, plain_ms, bound_ms, bound_by, library_ms = rows[0]
         record[key] = {
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
     return record
 
@@ -497,10 +654,11 @@ def phase_kernels() -> dict[str, dict]:
 
 
 @contextlib.contextmanager
-def main_path(label: str, pipeline_calls: list):
-    """Launch counters at 0 before the path, every kernel launched after
-    it; each device-pipeline call's launches and peak memory recorded;
-    the plain optimiser loops refuse CUDA tensors meanwhile."""
+def main_path(label: str, pipeline_calls: list, kernels: tuple = PIPELINE_KERNELS):
+    """Launch counters at 0 before the path, every kernel of ``kernels``
+    launched after it; each device-pipeline call's launches and peak
+    memory recorded; the plain optimiser loops refuse CUDA tensors
+    meanwhile."""
     from pywindow_torch.ops import (
         _cuda,
         analysis,
@@ -549,8 +707,8 @@ def main_path(label: str, pipeline_calls: list):
         torch.cuda.synchronize()
         launches = {k: _cuda.LAUNCHES[k] for k in KERNELS}
         print(f"{label}: launches {json.dumps(launches)}")
-        for key, n in launches.items():
-            check(n > 0, f"{label}: {key} was not launched")
+        for key in kernels:
+            check(launches[key] > 0, f"{label}: {key} was not launched")
         main_path.launches[label] = launches
     finally:
         analysis.run_pipeline = run_pipeline
@@ -657,12 +815,13 @@ def phase_sweep(pipeline_calls: list):
     pin the sweep used (the largest frame's maximum diameter)."""
     import pywindow_torch as pt
 
+    from pywindow_torch import native
     from pywindow_torch.parallel import batch
     from pywindow_torch.profiling import METRICS
 
     path = synth_history(SWEEP_FRAMES)
     first = len(pipeline_calls)
-    before = dict(METRICS.stage_seconds)
+    before, calls_before = dict(METRICS.stage_seconds), dict(native.CALLS)
     pins = []
     sweep_uniform = batch.sweep_uniform
 
@@ -673,7 +832,6 @@ def phase_sweep(pipeline_calls: list):
 
     t0 = time.perf_counter()
     traj = pt.DLPOLY(path)
-    t_map = time.perf_counter() - t0
     batch.sweep_uniform = pinned
     try:
         traj.analysis_batched(swap_atoms={"he": "H"}, forcefield="OPLS", batch_size=SWEEP_CHUNK)
@@ -682,7 +840,10 @@ def phase_sweep(pipeline_calls: list):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     check(len(pins) == 1, f"sweep: {len(pins)} uniform sweeps, expected 1")
-    sweep_stages(before, t_map)
+    sweep_stages("sweep", before)
+    calls = native_calls("sweep", calls_before)
+    for name in ("map_history", "decode_dlpoly_frames_batch"):
+        check(calls.get(name, 0) > 0, f"sweep: native {name} never ran")
     out = traj.analysis_output
     check(len(out) == SWEEP_FRAMES, f"sweep: {len(out)} of {SWEEP_FRAMES} frames")
     for frame, mols in out.items():
@@ -857,18 +1018,195 @@ def phase_profile(pin: float) -> None:
     )
 
 
-def sweep_stages(before: dict, t_map: float) -> None:
-    """The sweep's host stage seconds (profiling.METRICS) since
-    ``before``, and the HISTORY map with its integrity check."""
+def sweep_stages(label: str, before: dict) -> dict:
+    """A sweep's host stage seconds (``profiling.stage`` spans, among
+    them the trajectory map with its integrity check) since ``before``."""
     from pywindow_torch.profiling import METRICS
 
-    spans = {"trajectory_map": t_map}
-    spans.update(
-        (k, v - before.get(k, 0.0))
+    spans = {
+        k: v - before.get(k, 0.0)
         for k, v in METRICS.stage_seconds.items()
         if v - before.get(k, 0.0) > 0
+    }
+    print(f"{label} stages: {json.dumps({k: round(v, 4) for k, v in spans.items()})} s")
+    return spans
+
+
+def native_calls(label: str, before: dict) -> dict:
+    """The native library's calls by function since ``before``."""
+    from pywindow_torch import native
+
+    calls = {k: v - before.get(k, 0) for k, v in native.CALLS.items() if v - before.get(k, 0)}
+    print(f"{label} native calls: {json.dumps(calls)}")
+    return calls
+
+
+# -- phases 8-10: the periodic system, its trajectory, the clearance grid ------
+
+
+def load_pdb_atoms(path: pathlib.Path) -> tuple[np.ndarray, np.ndarray]:
+    """(elements, coordinates) of a PDB file's atom records."""
+    atoms = [ln for ln in path.read_text().splitlines() if ln[:6] in ("ATOM  ", "HETATM")]
+    elements = np.array([ln[76:78].strip() for ln in atoms])
+    coords = np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])] for ln in atoms])
+    return elements, coords
+
+
+def periodic_errors(props: dict) -> dict[str, float]:
+    """One cage against its orientation's row (the nearer average
+    diameter): pore_opt, average diameter and the four sorted windows."""
+    avg = props["average_diameter"]
+    row = min(PERIODIC_ROWS, key=lambda r: abs(r - avg))
+    check(props["no_of_atoms"] == 168, f"a cage of {props['no_of_atoms']} atoms")
+    wins = props["windows"]["diameters"]
+    check(wins is not None and len(wins) == 4, f"cage windows {wins}")
+    return {
+        "pore_opt": abs(props["pore_diameter_opt"]["diameter"] - PERIODIC_PORE),
+        "avg": abs(avg - row),
+        "windows": float(np.abs(np.sort(np.asarray(wins, np.float64)) - PERIODIC_ROWS[row]).max()),
+    }
+
+
+def phase_periodic_system() -> None:
+    import pywindow_torch as pt
+
+    system = pt.MolecularSystem.load_file(PERIODIC)
+    t0 = time.perf_counter()
+    rebuilt = system.rebuild_system().system
+    t_rebuild = time.perf_counter() - t0
+    gold_el, gold_co = load_pdb_atoms(DATA / "system_periodic_rebuild.pdb")
+    check(
+        np.array_equal(np.asarray(rebuilt["elements"], dtype="<U2"), gold_el),
+        "rebuild: element order differs from the reference rebuild",
     )
-    print(f"sweep stages: {json.dumps({k: round(v, 4) for k, v in spans.items()})} s")
+    co_err = float(np.abs(rebuilt["coordinates"] - gold_co).max())
+    check(co_err <= 5.1e-4, f"rebuild: coordinates differ by {co_err} A")
+    system.make_modular(rebuild=True)
+    check(len(system.molecules) == 8, f"{len(system.molecules)} molecules, expected 8")
+    t0 = time.perf_counter()
+    res = system.analyze_molecules()
+    seconds = time.perf_counter() - t0
+    worst = {"pore_opt": 0.0, "avg": 0.0, "windows": 0.0}
+    for key, props in res.items():
+        check_finite(f"cage {key}", props)
+        for name, err in periodic_errors(props).items():
+            worst[name] = max(worst[name], err)
+    print(
+        f"periodic system: rebuild {t_rebuild:.3f} s, {len(rebuilt['elements'])} atoms equal the "
+        f"reference rebuild (coordinates within {co_err:.1e} A); 8 cages in {seconds:.3f} s, "
+        f"worst abs err {json.dumps(worst)} A (tol {TOL})"
+    )
+    check(max(worst.values()) < TOL, "periodic system: a cage is off its reference row")
+
+
+def synth_periodic(n_frames: int) -> pathlib.Path:
+    """An n-frame periodic PDB trajectory under build/: frame 0 is
+    ``system_periodic.pdb`` itself, frame f > 0 its cell translated by a
+    vector uniform in the cell (seed 0) with every atom wrapped back, in
+    the file's fixed columns, frames separated by END."""
+    out = ROOT / "build" / f"periodic_{n_frames}.pdb"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    text = PERIODIC.read_text()
+    lines = text.splitlines()
+    cryst = next(ln for ln in lines if ln.startswith("CRYST1"))
+    atoms = [ln for ln in lines if ln[:6] in ("ATOM  ", "HETATM")]
+    xyz = np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])] for ln in atoms])
+    a = float(cryst[6:15])
+    rng = np.random.default_rng(0)
+    with out.open("w") as fh:
+        fh.write(text[: text.rindex("END")] + "END\n")
+        for _ in range(1, n_frames):
+            moved = np.mod(xyz + rng.uniform(0.0, a, 3), a)
+            body = [ln[:30] + f"{x:8.3f}{y:8.3f}{z:8.3f}" + ln[54:] for ln, (x, y, z) in zip(atoms, moved)]
+            fh.write("\n".join([cryst, *body, "END"]) + "\n")
+    return out
+
+
+def phase_periodic_trajectory(pipeline_calls: list):
+    import pywindow_torch as pt
+
+    from pywindow_torch import native
+    from pywindow_torch.profiling import METRICS
+
+    path = synth_periodic(PERIODIC_FRAMES)
+    first = len(pipeline_calls)
+    before, calls_before = dict(METRICS.stage_seconds), dict(native.CALLS)
+    t0 = time.perf_counter()
+    traj = pt.PDB(path)
+    traj.analysis_batched(
+        frames="all", batch_size=PERIODIC_CHUNK, modular=True, rebuild=True, forcefield="DLF"
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = traj.analysis_output
+    check(len(out) == PERIODIC_FRAMES, f"periodic: {len(out)} of {PERIODIC_FRAMES} frames")
+    worst = {"pore_opt": 0.0, "avg": 0.0, "windows": 0.0}
+    n_mol = 0
+    for frame, mols in out.items():
+        check(sorted(mols) == list(range(8)), f"periodic frame {frame}: molecules {sorted(mols)}")
+        for key, props in mols.items():
+            check_finite(f"periodic frame {frame} cage {key}", props)
+            for name, err in periodic_errors(props).items():
+                worst[name] = max(worst[name], err)
+            n_mol += 1
+    print(
+        f"periodic trajectory: {PERIODIC_FRAMES} frames, {n_mol} cages in {seconds:.3f} s = "
+        f"{PERIODIC_FRAMES / seconds:.2f} frames/s, {n_mol / seconds:.1f} molecules/s "
+        f"(batch_size {PERIODIC_CHUNK}: PDB map + decode + rebuild + analysis); "
+        f"worst abs err {json.dumps(worst)} A (tol {TOL})"
+    )
+    check(max(worst.values()) < TOL, "periodic trajectory: a cage is off its reference row")
+    sweep_stages("periodic trajectory", before)
+    calls = native_calls("periodic trajectory", calls_before)
+    for name in ("bfs_molecule", "decode_pdb_frame"):
+        check(calls.get(name, 0) > 0, f"periodic trajectory: native {name} never ran")
+    for _, b, _, peak in pipeline_calls[first:]:
+        print(f"  periodic pipeline call: B={b}, peak device memory {peak / 2**30:.3f} GiB")
+    return traj
+
+
+def phase_periodic_serial(traj) -> None:
+    """Frames of the periodic sweep against the serial path, outside the
+    sweep's launch count: pore_opt within 1e-4 Å, the same window
+    counts, windows within 0.01 Å (the serial path samples each cage
+    with its own maximum diameter, the sweep with the chunk's pin)."""
+    import pywindow_torch as pt
+
+    serial = pt.PDB(traj.filepath)
+    serial.analysis(frames=PERIODIC_SAMPLE, modular=True, rebuild=True, forcefield="DLF")
+    worst = {"pore_opt": 0.0, "windows": 0.0}
+    for frame in PERIODIC_SAMPLE:
+        got, ref = traj.analysis_output[frame], serial.analysis_output[frame]
+        check(sorted(got) == sorted(ref), f"periodic frame {frame}: molecule keys differ")
+        for key in ref:
+            d_pore = abs(got[key]["pore_diameter_opt"]["diameter"] - ref[key]["pore_diameter_opt"]["diameter"])
+            worst["pore_opt"] = max(worst["pore_opt"], d_pore)
+            err = _windows_err(got[key], ref[key])
+            check(err is not None, f"periodic frame {frame} cage {key}: window counts differ")
+            worst["windows"] = max(worst["windows"], err)
+    print(f"periodic trajectory vs analysis(), frames {PERIODIC_SAMPLE}: {json.dumps(worst)} A")
+    check(worst["pore_opt"] <= 1e-4, "periodic: pore_opt differs from the serial path")
+    check(worst["windows"] < TOL, "periodic: windows differ from the serial path")
+
+
+def phase_clearance_grid() -> None:
+    """The clearance field of the periodic cell on its 50^3 grid, through
+    the public ``clearance_min``."""
+    from pywindow_torch.ops.clearance_kernels import clearance_min
+
+    probes, coords, vdw = periodic_grid(torch.float32)
+    t0 = time.perf_counter()
+    field = clearance_min(probes, coords, vdw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(tuple(field.shape) == (GRID_POINTS**3,), f"grid: shape {tuple(field.shape)}")
+    check(bool(torch.isfinite(field).all()), "grid: clearance not finite")
+    free = int((field > 0).sum())
+    print(
+        f"clearance grid: {GRID_POINTS}^3 probes against {coords.shape[0]} atoms in "
+        f"{seconds * 1e3:.3f} ms (first call); clearance {float(field.min()):.3f} to "
+        f"{float(field.max()):.3f} A, {free} probes ({100 * free / field.numel():.1f}%) outside every vdW sphere"
+    )
 
 
 def main() -> None:
@@ -887,26 +1225,36 @@ def main() -> None:
         traj, pin = phase_sweep(calls)
     phase_sweep_samples(traj, pin)
     phase_profile(pin)
+    with main_path("periodic system", calls):
+        phase_periodic_system()
+    with main_path("periodic trajectory", calls):
+        periodic = phase_periodic_trajectory(calls)
+    phase_periodic_serial(periodic)
+    with main_path("clearance grid", calls, kernels=("clearance_min",)):
+        phase_clearance_grid()
 
     per_call = {json.dumps(delta, sort_keys=True) for _, _, delta, _ in calls}
     sizes = sorted({b for _, b, _, _ in calls})
     print(f"launches per pipeline call over {len(calls)} calls (B in {sizes}): {sorted(per_call)}")
     check(len(per_call) == 1, "launches per pipeline call depend on the batch")
 
-    launches = main_path.launches["sweep"]
+    def launches(key):
+        path = "clearance grid" if key == "clearance_min" else "sweep"
+        return main_path.launches[path][key]
+
     kernels = [
         {
             "name": key,
             "route": "cuda",
             "source": src,
             "replaces": replaces,
-            "launches": launches[key],
+            "launches": launches(key),
             "max_abs_err": record[key]["max_abs_err"],
             "ms": record[key]["ms"],
             "plain_ms": record[key]["plain_ms"],
             "bound_ms": record[key]["bound_ms"],
             "bound_by": record[key]["bound_by"],
-            "library_ms": None,
+            "library_ms": record[key]["library_ms"],
         }
         for key, (src, replaces) in KERNELS.items()
     ]

@@ -37,7 +37,7 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-def default_dtype(device: torch.device | str = "cpu") -> torch.dtype:
+def default_dtype(device: torch.device | str) -> torch.dtype:
     """Compute dtype for tensors that live on ``device``."""
     if os.environ.get("PYWINDOW_TORCH_FORCE_F32"):
         return torch.float32

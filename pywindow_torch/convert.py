@@ -22,7 +22,7 @@ def mol_arrays_from_numpy(
     vdw,
     cov,
     mask,
-    device: torch.device | str = "cpu",
+    device: torch.device | str,
     dtype: torch.dtype | None = None,
 ) -> MolArrays:
     """The port's :class:`MolArrays` from the numpy arrays of a

@@ -1,6 +1,6 @@
 // PyTorch bindings of the pywindow_torch CUDA kernels: the only source
 // that includes PyTorch's headers (they dominate the build time).  The
-// Python wrappers in pywindow_torch/ops/{ray,cluster,lbfgsb,nm}_kernels.py
+// Python wrappers in pywindow_torch/ops/*_kernels.py
 // check device, dtype, shape and contiguity before calling these; each
 // binding launches on the current stream of the tensors' device and
 // checks the launch.
@@ -152,6 +152,21 @@ void nm_xy(const at::Tensor& coords, const at::Tensor& vdw,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void clearance_min(const at::Tensor& probes, const at::Tensor& coords,
+                   const at::Tensor& vdw, at::Tensor out) {
+  const c10::cuda::CUDAGuard guard(probes.device());
+  if (probes.scalar_type() == at::kDouble) {
+    pw::clearance_min(probes.data_ptr<double>(), coords.data_ptr<double>(),
+                      vdw.data_ptr<double>(), out.data_ptr<double>(),
+                      dim(probes, 0), dim(coords, 0), current_stream(probes));
+  } else {
+    pw::clearance_min(probes.data_ptr<float>(), coords.data_ptr<float>(),
+                      vdw.data_ptr<float>(), out.data_ptr<float>(),
+                      dim(probes, 0), dim(coords, 0), current_stream(probes));
+  }
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -161,4 +176,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dbscan", &dbscan, "DBSCAN labels per frame");
   m.def("lbfgsb_stable", &lbfgsb_stable, "stable L-BFGS-B per lane");
   m.def("nm_xy", &nm_xy, "window-xy brute grid + Nelder-Mead per lane");
+  m.def("clearance_min", &clearance_min, "vdW clearance field of probes");
 }

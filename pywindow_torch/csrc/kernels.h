@@ -90,4 +90,12 @@ void nm_xy(const double* coords, const double* vdw, const double* zanchor,
            int N, int brute_ns, int maxiter, double xatol, double fatol,
            void* stream);
 
+// clearance_min.cu: min_i(|x_i - p| - vdw_i) of Q probes (Q,3) against
+// N atoms, coords (N,3) and vdw (N,), padded atoms parked far away with
+// vdW 0 -> out (Q,).  No frame axis: one probe set, one molecule.
+void clearance_min(const float* probes, const float* coords, const float* vdw,
+                   float* out, int Q, int N, void* stream);
+void clearance_min(const double* probes, const double* coords,
+                   const double* vdw, double* out, int Q, int N, void* stream);
+
 }  // namespace pw

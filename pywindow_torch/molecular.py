@@ -4,23 +4,32 @@ molecular.py:60-955).
 
 The port carries loading (``load_file``, ``load_system``), the
 force-field key helpers (``swap_atom_keys``, ``decipher_atom_keys``),
-the whole system as one molecule (``system_to_molecule``) and the
-per-molecule analysis (``full_analysis`` and the ``calculate_*``
-getters).  Every analysis runs on the card unless the caller passes
-``device="cpu"``.
+the periodic rebuild and the split into molecules (``rebuild_system``,
+``make_modular``; host numpy and the native BFS,
+:mod:`pywindow_torch.ops.rebuild`), the whole system as one molecule
+(``system_to_molecule``), the per-molecule analysis (``full_analysis``,
+the ``calculate_*`` getters, and ``analyze_molecules``, one batch of
+every molecule of the system) and the writers.  Every analysis runs on
+the card unless the caller passes ``device="cpu"``.  Shape descriptors
+and the principal-axes alignment are not ported yet (ROADMAP Q1.11).
 """
 
 from __future__ import annotations
 
 import pathlib
+from copy import deepcopy
 
 import numpy as np
 import torch
 
+from pywindow_torch import tables
 from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
 from pywindow_torch.io.forcefield import decipher_all
 from pywindow_torch.io.inputs import Input
+from pywindow_torch.io.outputs import Output, to_list
 from pywindow_torch.ops import analysis as _analysis
+from pywindow_torch.ops.cell import create_supercell
+from pywindow_torch.ops.rebuild import discrete_molecules
 
 
 class Molecule:
@@ -36,6 +45,7 @@ class Molecule:
         config: AnalysisConfig = DEFAULT_CONFIG,
         device: torch.device | str = "cuda",
     ) -> None:
+        self._Output = Output()
         self.mol = mol
         self.no_of_atoms = len(mol["elements"])
         self.elements = mol["elements"]
@@ -103,6 +113,20 @@ class Molecule:
         if not self._analysed:
             self.full_analysis(device=self.device)
 
+    def molecular_weight(self) -> float:
+        """Sum of atomic masses in g/mol (reference: molecular.py:268)."""
+        self.MW = float(tables.ELEMENT_MASS[tables.element_ids(self.elements)].sum())
+        return self.MW
+
+    def calculate_centre_of_mass(self) -> np.ndarray:
+        """Mass-weighted centroid; stored under ``centre_of_mass``
+        (reference: molecular.py:277)."""
+        m = tables.ELEMENT_MASS[tables.element_ids(self.elements)]
+        com = (np.asarray(self.coordinates) * m[:, None]).sum(0) / m.sum()
+        self.centre_of_mass = com
+        self.properties["centre_of_mass"] = com
+        return com
+
     def calculate_maximum_diameter(self) -> float:
         """Largest interatomic distance plus vdW radii, in Å."""
         self._ensure_analysis()
@@ -139,6 +163,77 @@ class Molecule:
         self._ensure_analysis()
         return self.properties["windows"]["diameters"]
 
+    def shift_to_origin(self) -> None:
+        """Translate so the COM coincides with the origin
+        (reference: molecular.py:354-366).  Diameters do not change;
+        the positional properties (COM, optimised pore centre, window
+        centres) are translated in place rather than recomputed."""
+        com = self.calculate_centre_of_mass()
+        self.coordinates = np.asarray(self.coordinates) - com
+        self.mol["coordinates"] = self.coordinates
+        self.properties["centre_of_mass"] = np.zeros(3)
+        self.centre_of_mass = self.properties["centre_of_mass"]
+        if "pore_diameter_opt" in self.properties:
+            opt = self.properties["pore_diameter_opt"]
+            opt["centre_of_mass"] = np.asarray(opt["centre_of_mass"]) - com
+            self.pore_opt_COM = opt["centre_of_mass"]
+        wins = self.properties.get("windows", {})
+        if wins.get("centre_of_mass") is not None:
+            wins["centre_of_mass"] = np.asarray(wins["centre_of_mass"]) - com
+
+    # -- output (reference: molecular.py:398-546) ------------------------
+
+    def dump_properties_json(
+        self,
+        filepath: pathlib.Path | str | None = None,
+        molecular: bool = False,
+        override: bool = False,
+    ) -> None:
+        """Write ``properties`` (plus the molecule dict when
+        ``molecular=True``) as JSON."""
+        dict_obj = deepcopy(self.properties)
+        if molecular:
+            dict_obj.update(self.mol)
+        if filepath is None:
+            filepath = pathlib.Path.cwd() / f"{self.parent_system}_{self.molecule_id}"
+        self._Output.dump2json(
+            dict_obj, pathlib.Path(filepath), default=to_list, override=override
+        )
+
+    def dump_molecule(
+        self,
+        filepath: pathlib.Path | str | None = None,
+        include_coms: bool = False,
+        override: bool = False,
+        **kwargs,
+    ) -> None:
+        """Write the molecule to PDB or XYZ, optionally with He (COM), Ne
+        (optimised pore centre) and Ar (window centres) markers; with
+        markers it runs the analysis first if it has not run."""
+        if filepath is None:
+            filepath = pathlib.Path.cwd() / f"{self.parent_system}_{self.molecule_id}.pdb"
+        atom_ids_key = "elements" if "atom_ids" not in self.mol else "atom_ids"
+        mmol = deepcopy(self.mol)
+        if include_coms:
+            self._ensure_analysis()
+
+            def overlay(element, atom_id, xyz):
+                mmol["elements"] = np.concatenate((mmol["elements"], np.array([element])))
+                if "atom_ids" in mmol:
+                    mmol["atom_ids"] = np.concatenate((mmol["atom_ids"], np.array([atom_id])))
+                mmol["coordinates"] = np.concatenate((mmol["coordinates"], np.array([xyz])))
+
+            overlay("He", "He", self.properties["centre_of_mass"])
+            overlay("Ne", "Ne", self.properties["pore_diameter_opt"]["centre_of_mass"])
+            wcoms = self.properties["windows"]["centre_of_mass"]
+            if wcoms is not None:
+                for k, com in enumerate(wcoms):
+                    overlay("Ar", f"Ar{k + 1}", com)
+        self._Output.dump2file(
+            mmol, pathlib.Path(filepath), atom_ids_key=atom_ids_key,
+            override=override, **kwargs,
+        )
+
 
 class MolecularSystem:
     """Container for a loaded molecular system (reference:
@@ -146,8 +241,10 @@ class MolecularSystem:
 
     def __init__(self) -> None:
         self._Input = Input()
+        self._Output = Output()
         self.system_id: str | int = 0
         self.system: dict = {}
+        self.molecules: dict = {}
 
     @classmethod
     def load_file(cls, filepath: pathlib.Path | str) -> MolecularSystem:
@@ -170,6 +267,32 @@ class MolecularSystem:
         obj.system_id = system_id
         return obj
 
+    def rebuild_system(self, override: bool = False, **kwargs) -> MolecularSystem:
+        """The system with the molecules that cross the periodic boundary
+        made whole, as a new :class:`MolecularSystem` (reference:
+        molecular.py:672-708); ``override`` also replaces this system's
+        atoms.  ``kwargs`` go to
+        :func:`~pywindow_torch.ops.rebuild.discrete_molecules`
+        (``use_native``, ``tol``)."""
+        discrete = discrete_molecules(
+            self.system, rebuild=create_supercell(self.system), **kwargs
+        )
+        coordinates = np.array([], dtype=np.float64).reshape(0, 3)
+        atom_ids = np.array([])
+        elements = np.array([])
+        have_ids = all("atom_ids" in mol for mol in discrete) and discrete
+        for mol in discrete:
+            coordinates = np.concatenate([coordinates, mol["coordinates"]], axis=0)
+            elements = np.concatenate([elements, mol["elements"]])
+            if have_ids:
+                atom_ids = np.concatenate([atom_ids, mol["atom_ids"]])
+        rebuilt = {"coordinates": coordinates, "elements": elements}
+        if have_ids:
+            rebuilt["atom_ids"] = atom_ids
+        if override:
+            self.system.update(rebuilt)
+        return self.load_system(rebuilt)
+
     def swap_atom_keys(self, swap_dict: dict, dict_key: str = "atom_ids") -> None:
         """Replace force-field atom ids by user-defined values
         (reference: molecular.py:710-749)."""
@@ -189,7 +312,100 @@ class MolecularSystem:
             dict_key = "elements"
         self.system["elements"] = decipher_all(self.system[dict_key], forcefield)
 
+    def make_modular(self, rebuild: bool = False, use_native: bool = True) -> None:
+        """Split the system into :class:`Molecule` s keyed 0, 1, ...
+        (reference: molecular.py:798-824); ``rebuild`` first makes whole
+        the molecules that cross the periodic boundary."""
+        supercell = create_supercell(self.system) if rebuild else None
+        dis = discrete_molecules(self.system, rebuild=supercell, use_native=use_native)
+        self.no_of_discrete_molecules = len(dis)
+        self.molecules = {
+            i: Molecule(dis[i], str(self.system_id), i) for i in range(len(dis))
+        }
+
     def system_to_molecule(self) -> Molecule:
         """Treat the whole system as one :class:`Molecule`
         (reference: molecular.py:818)."""
         return Molecule(self.system, str(self.system_id), 0)
+
+    def analyze_molecules(self, device: torch.device | str = "cuda") -> dict:
+        """Full analysis of every molecule of :meth:`make_modular` as one
+        batch on ``device`` (the card unless the caller asks for the
+        CPU) -> ``{molecule key: properties}``; each :class:`Molecule`'s
+        ``properties`` are filled in place."""
+        if not self.molecules:
+            msg = "no molecules; run make_modular() first"
+            raise RuntimeError(msg)
+        from pywindow_torch.parallel.batch import analyze_batch
+
+        keys = list(self.molecules)
+        results = analyze_batch(
+            [(self.molecules[k].elements, self.molecules[k].coordinates) for k in keys],
+            device=device,
+        )
+        for key, props in zip(keys, results):
+            mol = self.molecules[key]
+            mol.MW = props.pop("molecular_weight")
+            mol.properties.update(props)
+            mol._sync_attributes()
+            mol.device = device
+            mol._analysed = True
+        return {k: self.molecules[k].properties for k in keys}
+
+    # -- output (reference: molecular.py:849-955) ------------------------
+
+    def dump_system(
+        self,
+        filepath: pathlib.Path | str | None = None,
+        modular: bool = False,
+        override: bool = False,
+        **kwargs,
+    ) -> None:
+        """Write the system to PDB or XYZ; ``modular=True`` writes the
+        molecules of :meth:`make_modular` one after another instead."""
+        if filepath is None:
+            filepath = pathlib.Path.cwd() / f"{self.system_id}.pdb"
+        system_dict = deepcopy(self.system)
+        if modular:
+            elements = np.array([])
+            atom_ids = np.array([])
+            coor = np.array([]).reshape(0, 3)
+            have_ids = self.molecules and all(
+                "atom_ids" in m.mol for m in self.molecules.values()
+            )
+            for mol_ in self.molecules.values():
+                elements = np.concatenate((elements, mol_.mol["elements"]))
+                if have_ids:
+                    atom_ids = np.concatenate((atom_ids, mol_.mol["atom_ids"]))
+                coor = np.concatenate((coor, mol_.mol["coordinates"]), axis=0)
+            system_dict["elements"] = elements
+            system_dict["coordinates"] = coor
+            if have_ids:
+                system_dict["atom_ids"] = atom_ids
+            else:
+                system_dict.pop("atom_ids", None)
+        atom_ids_key = "elements" if "atom_ids" not in system_dict else "atom_ids"
+        self._Output.dump2file(
+            system_dict, pathlib.Path(filepath), atom_ids_key=atom_ids_key,
+            override=override, **kwargs,
+        )
+
+    def dump_system_json(
+        self,
+        filepath: pathlib.Path | str | None = None,
+        modular: bool = False,
+        override: bool = False,
+    ) -> None:
+        """Write the system dict (or, with ``modular=True``, the
+        molecule dicts) as JSON."""
+        dict_obj = deepcopy(self.system)
+        if modular:
+            if not self.molecules:
+                msg = "this system is not modular; run make_modular() first"
+                raise RuntimeError(msg)
+            dict_obj = {key: mol_.mol for key, mol_ in self.molecules.items()}
+        if filepath is None:
+            filepath = pathlib.Path.cwd() / f"{self.system_id}"
+        self._Output.dump2json(
+            dict_obj, pathlib.Path(filepath), default=to_list, override=override
+        )

@@ -30,6 +30,7 @@ SOURCES = (
     "dbscan.cu",
     "lbfgsb_stable.cu",
     "nm_xy.cu",
+    "clearance_min.cu",
 )
 #: -fmad=false: no multiply-add contraction, so each kernel rounds
 #: exactly like its plain PyTorch version (which runs one op at a time).

@@ -80,7 +80,8 @@ def encode_batch(
     systems: list[tuple[np.ndarray, np.ndarray]],
     pad_to: int | None = None,
     dtype: torch.dtype | None = None,
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
 ) -> MolArrays:
     """Encode (elements, coordinates) pairs into one stacked (B, N_pad)
     batch on ``device``, padded to the largest member (counterpart of

@@ -183,11 +183,12 @@ def test_trajectory_integrity_errors_raise_at_construction(tmp_path):
     backwards.write_text("\n".join(swapped) + "\n")
     with pytest.raises(pt.trajectory.TrajectoryError, match="discontinuous"):
         pt.DLPOLY(backwards)
+    # the Python map and integrity check raise the same errors
+    for bad, match in ((empty, "empty line"), (backwards, "discontinuous")):
+        with pytest.raises(pt.trajectory.TrajectoryError, match=match):
+            pt.DLPOLY(bad, use_native=False)
     traj = pt.DLPOLY(HISTORY)
     assert traj.no_of_frames == 20 and traj.no_of_atoms == 168
-    for option in ({"modular": True}, {"exact_sizes": True}, {"autosave": tmp_path / "a"}):
-        with pytest.raises(NotImplementedError, match="Q1.8-9"):
-            traj.analysis_batched(frames=[0], device="cpu", **option, **FF)
 
 
 def test_learned_caps_evict_the_oldest_entry_only():

@@ -29,7 +29,7 @@ def _mols(case):
 def test_encode_matches_jax_field_for_field():
     elements, coords = load_structure("BATVUP")
     jm = jenc.encode(elements, coords, dtype=np.float64)
-    tm = tenc.encode_batch([(elements, coords)])
+    tm = tenc.encode_batch([(elements, coords)], device="cpu")
     assert tm.coords.dtype == torch.float64
     for a, b in zip(jm, tm):
         np.testing.assert_array_equal(np.asarray(a), b[0].numpy())
@@ -42,9 +42,9 @@ def test_encode_matches_jax_field_for_field():
 def test_encode_float32_and_pad_errors(monkeypatch):
     elements, coords = load_structure("YAQHOQ")
     monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
-    assert tenc.encode_batch([(elements, coords)]).coords.dtype == torch.float32
+    assert tenc.encode_batch([(elements, coords)], device="cpu").coords.dtype == torch.float32
     with pytest.raises(ValueError, match="pad_to"):
-        tenc.encode_batch([(elements, coords)], pad_to=len(elements) - 1)
+        tenc.encode_batch([(elements, coords)], pad_to=len(elements) - 1, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["PUDXES", "BATVUP", "random"])

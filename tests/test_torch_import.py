@@ -1,5 +1,5 @@
 """``import pywindow_torch`` loads torch and numpy only: no JAX, no
-Triton, no kernel build."""
+Triton, no kernel or native-library build."""
 
 import os
 import pathlib
@@ -11,10 +11,13 @@ def test_import_pulls_in_neither_jax_nor_triton(tmp_path):
     code = (
         "import sys, pywindow_torch\n"
         "from pywindow_torch.ops import analysis, ray_kernels, cluster_kernels\n"
-        "bad = [m for m in ('jax', 'triton') if m in sys.modules]\n"
+        "from pywindow_torch.ops import clearance_kernels, rebuild\n"
+        "from pywindow_torch import native, trajectory\n"
+        "bad = [m for m in ('jax', 'triton', 'pywindow_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "from pywindow_torch.ops import _cuda\n"
         "assert _cuda.load_extension.cache_info().currsize == 0\n"
+        "assert native.lib.cache_info().currsize == 0\n"
     )
     root = pathlib.Path(__file__).resolve().parent.parent
     proc = subprocess.run(

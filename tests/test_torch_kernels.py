@@ -23,6 +23,7 @@ import torch
 import pywindow_torch as pt
 from pywindow_torch.ops import (
     _cuda,
+    clearance_kernels,
     cluster,
     cluster_kernels,
     lbfgsb_kernels,
@@ -168,6 +169,29 @@ def _assert_optimiser_lanes(x_k, f_k, cap_k, x_p, f_p, cap_p):
     assert bool(((f_k - f_p).abs()[off] <= 1e-9).all()), (dx[off], (f_k - f_p)[off])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(("q", "n"), [(100, 50), (513, 129), (4100, 1344)])
+def test_clearance_min_kernel_matches_plain(cuda, dtype, q, n):
+    """Exact in both dtypes: the same difference-form distances, rounded
+    op by op (-fmad=false), and a minimum that is exact in any order;
+    24 parked atoms (1e6, vdW 0) never win."""
+    rng = np.random.default_rng(q + n)
+    coords = np.concatenate([rng.normal(size=(n, 3)) * 12, np.full((24, 3), 1.0e6)])
+    vdw = np.concatenate([rng.uniform(1.0, 2.0, n), np.zeros(24)])
+    probes = rng.normal(size=(q, 3)) * 10
+
+    def f(a):
+        return torch.tensor(a, dtype=dtype, device=cuda)
+
+    before = _cuda.LAUNCHES["clearance_min"]
+    got = clearance_kernels.clearance_min(f(probes), f(coords), f(vdw))
+    assert _cuda.LAUNCHES["clearance_min"] == before + 1
+    ref = clearance_kernels.clearance_min_plain(f(probes), f(coords), f(vdw))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (q,)
+    assert torch.equal(got, ref)
+
+
 def test_lbfgsb_stable_kernel_matches_plain_pore_lanes(cuda):
     """d = 3: 13 pore-centre lanes (not a multiple of a warp's 32),
     104-slot padded shells, from the COM within ±pore_r."""
@@ -241,6 +265,12 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         )
     with pytest.raises(ValueError, match="shape"):
         nm_kernels.nm_xy_flat_cuda(coords, vdw, x1[:1, 0].contiguous(), x1[:, 0].contiguous())
+    with pytest.raises(TypeError, match="float64"):
+        clearance_kernels.clearance_min_cuda(x3, coords[0].float(), vdw[0])
+    with pytest.raises(ValueError, match="shape"):
+        clearance_kernels.clearance_min_cuda(x3, coords[0], vdw)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        clearance_kernels.clearance_min_cuda(x3, coords[0].cpu(), vdw[0])
 
 
 def test_full_analysis_on_the_card_matches_cpu_float32(cuda, monkeypatch):

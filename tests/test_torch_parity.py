@@ -21,7 +21,7 @@ def both_encoded(elements, coords, dtype=np.float64):
     the JAX package and carried across with ``convert``."""
     jm = jenc.encode(elements, coords, dtype=np.dtype(dtype))
     tm = mol_arrays_from_numpy(
-        *(np.asarray(a) for a in jm), dtype=TORCH_DTYPE[np.dtype(dtype)]
+        *(np.asarray(a) for a in jm), device="cpu", dtype=TORCH_DTYPE[np.dtype(dtype)]
     )
     return jm, tm
 
@@ -42,7 +42,7 @@ def random_mol(n, seed, pad_to=None, dtype=np.float64):
     )
     fields = tuple(f.astype(dtype) if f.dtype != bool else f for f in fields)
     jm = jenc.MolArrays(*fields)
-    tm = mol_arrays_from_numpy(*fields, dtype=TORCH_DTYPE[np.dtype(dtype)])
+    tm = mol_arrays_from_numpy(*fields, device="cpu", dtype=TORCH_DTYPE[np.dtype(dtype)])
     return jm, tm
 
 
@@ -72,7 +72,7 @@ def test_convert_carries_config_and_molecule_across():
 
     elements, coords = load_structure("YAQHOQ")
     jm, tm = both_encoded(elements, coords)
-    for a, b in zip(tm, tenc.encode_batch([(elements, coords)])):
+    for a, b in zip(tm, tenc.encode_batch([(elements, coords)], device="cpu")):
         assert torch.equal(a, b[0])
     jm32, tm32 = both_encoded(elements, coords, np.float32)
     assert tm32.coords.dtype == torch.float32
