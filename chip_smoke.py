@@ -17,7 +17,12 @@ result line):
    trajectory's first chunk, 48 frames of 8 cages; the plain versions
    take a chunk in slices of lanes), in float64 and, for the ray kernels
    and DBSCAN, float32; warm timings and each kernel's bound (the least
-   time the card could take).  ``clearance_min``, which no pipeline
+   time the card could take).  Both ``lbfgsb_stable`` calls of a label
+   are timed (d = 3 pore, d = 1 window z), and for each optimiser call
+   the active-lane share, the slowest lane alone beside the whole call,
+   the float64 instruction floor, the bound beside the one over every
+   lane and atom and, for ``nm_xy``, the atoms its grid cull keeps
+   (``nm_kernels.grid_keep``).  ``clearance_min``, which no pipeline
    stage calls, is held on three input sets in both dtypes: the shapes
    of tests/test_pallas.py with the padding case, Q = 65,536 probes
    against N = 4,096 atoms, and a 50^3 clearance grid over the rebuilt
@@ -173,6 +178,12 @@ DEVICE = "cuda"
 #: per second, and operations per second outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+#: float64 instructions per second: 132 SMs x 64 FP64 lanes x 1.98 GHz
+#: (an FMA is one instruction and two of the 34 TFLOP/s)
+FP64_INSTR = 132 * 64 * 1.98e9
+#: instructions of one float64 square root or divide on the card: a
+#: reciprocal estimate refined by a Newton sequence (~10 instructions)
+SQRT_DIV_INSTR = 10
 
 
 def structure(name: str) -> pathlib.Path:
@@ -387,13 +398,13 @@ def plain_call(key, fn, *args, **kwargs):
     b = args[arg].shape[0]
     if b <= lanes:
         return fn(*args, **kwargs)
+    def cut(a, lo):
+        return a[lo : lo + lanes] if torch.is_tensor(a) and a.ndim and a.shape[0] == b else a
+
     parts = []
     for lo in range(0, b, lanes):
-        part = tuple(
-            a[lo : lo + lanes] if torch.is_tensor(a) and a.ndim and a.shape[0] == b else a
-            for a in args
-        )
-        parts.append(fn(*part, **kwargs))
+        part = tuple(cut(a, lo) for a in args)
+        parts.append(fn(*part, **{k: cut(v, lo) for k, v in kwargs.items()}))
     if torch.is_tensor(parts[0]):
         return torch.cat(parts)
     return tuple(torch.cat(p) for p in zip(*parts))
@@ -480,7 +491,9 @@ def compare_dbscan(args, kwargs, dtype):
 
 def _compare_lanes(name, x_k, f_k, cap_k, x_p, f_p, cap_p):
     """x within 1e-6 Å and equal capped flags on every lane; a lane
-    outside 1e-6 passes only on a tie of the objective to 1e-9."""
+    outside 1e-6 passes only on a tie of the objective to 1e-9.  Returns
+    the largest difference of x or f over all lanes (inactive lanes
+    included: both sides write the same placeholders)."""
     check(torch.equal(cap_k, cap_p), f"{name}: capped flags differ")
     dx = (x_k - x_p).abs().amax(-1)
     off = dx > 1e-6
@@ -488,7 +501,7 @@ def _compare_lanes(name, x_k, f_k, cap_k, x_p, f_p, cap_p):
         df = float((f_k[i] - f_p[i]).abs())
         print(f"  {name} lane {i}: |dx| {float(dx[i]):.3e} A, |df| {df:.3e} (objective tie)")
         check(df <= 1e-9, f"{name} lane {i}: x differs by {float(dx[i])} and f by {df}")
-    return float(dx[~off].max()) if bool((~off).any()) else 0.0
+    return max(float(dx.max()), float((f_k - f_p).abs().max())) if dx.numel() else 0.0
 
 
 def compare_lbfgsb(args, kwargs, dtype):
@@ -543,7 +556,7 @@ COMPARE = {
 }
 
 
-def bound(key, args, kwargs, out) -> tuple[float, str]:
+def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
     """The least time the card could take for one call: the larger of the
     bytes the function must move (inputs read once, outputs written once)
     over the HBM rate and the operations these inputs need over the peak
@@ -551,10 +564,21 @@ def bound(key, args, kwargs, out) -> tuple[float, str]:
     atom), (point, point) or (evaluation, atom), a sqrt or a divide
     counted as one operation; for the optimisers the evaluations are a
     lower bound from each lane's iteration count (one line-search
-    evaluation per iteration) or from the grid size."""
+    evaluation per iteration) or from the grid size.  An optimiser's
+    inactive lanes read their flag and write their outputs, nothing
+    else, and ``nm_xy``'s grid counts the atoms its exact cull keeps;
+    ``every_lane`` counts every lane and atom instead, the count that
+    rows measured before the flag and the cull existed used."""
     t = [a for a in args if torch.is_tensor(a)]
     dtype = t[0].dtype
-    in_bytes = sum(a.numel() * a.element_size() for a in t)
+    active = None if every_lane else kwargs.get("active")
+    b = t[0].shape[0]
+    share = 1.0 if active is None else int(active.sum()) / b
+    in_bytes = sum(
+        a.numel() * a.element_size() * (share if a.ndim and a.shape[0] == b else 1.0) for a in t
+    )
+    if active is not None:
+        in_bytes += active.numel() * active.element_size()
     outs = [o for o in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(o)]
     out_bytes = sum(o.numel() * o.element_size() for o in outs)
     if key == "ray_exit":
@@ -567,16 +591,8 @@ def bound(key, args, kwargs, out) -> tuple[float, str]:
     elif key == "dbscan":
         b, k, _ = args[0].shape
         ops = 9 * b * k * k
-    elif key == "lbfgsb_stable":
-        n, d = args[0].shape[1], args[3].shape[1]
-        nit = out[2].to(torch.int64)
-        per_eval = 11 + (11 + 20) + (11 + 11 + 20 * d)
-        lanes_evals = int((11 + 22 + 20 * d) * nit.numel() + per_eval * int(nit.sum()))
-        ops = n * lanes_evals
-    elif key == "nm_xy":
-        lanes, n = args[0].shape[0], args[0].shape[1]
-        ns = kwargs.get("brute_ns", 20)
-        ops = lanes * n * (12 + 22 * (ns * ns + 3))
+    elif key in ("lbfgsb_stable", "nm_xy"):
+        ops = optimiser_work(key, args, kwargs, out, every_lane)[0]
     elif key == "clearance_min":
         ops = 11 * args[0].shape[0] * args[1].shape[0]
     else:
@@ -584,6 +600,118 @@ def bound(key, args, kwargs, out) -> tuple[float, str]:
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     t_ops = ops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def active_lanes(args, kwargs) -> int:
+    """The lanes of an optimiser call that do work (an inactive lane, a
+    slot that holds no window, returns at once)."""
+    active = kwargs.get("active")
+    return args[0].shape[0] if active is None else int(active.sum())
+
+
+def grid_kept(args, kwargs) -> torch.Tensor:
+    """The atoms ``nm_xy``'s grid cull keeps in each active lane
+    (``nm_kernels.grid_keep``, in slices of 1,024 lanes)."""
+    from pywindow_torch.ops import nm_kernels
+
+    active = kwargs.get("active")
+    lanes = [a if active is None else a[active] for a in args[:4]]
+    ns = kwargs.get("brute_ns", 20)
+    kept = [
+        nm_kernels.grid_keep(*(a[lo : lo + 1024] for a in lanes), ns).sum(-1)
+        for lo in range(0, lanes[0].shape[0], 1024)
+    ]
+    return torch.cat(kept) if kept else torch.zeros(0, dtype=torch.int64, device=args[0].device)
+
+
+def optimiser_work(key, args, kwargs, out, every_lane=False) -> tuple[int, int]:
+    """(operations, square roots and divides) of an optimiser call, per
+    (evaluation, atom) as the kernels compute them, over the active
+    lanes (``every_lane``: over all): nm_xy the anchor pass and 3
+    simplex evaluations over every atom and the ns^2 grid over the atoms
+    the cull keeps (``every_lane``: every atom); lbfgsb_stable the start
+    and one line-search evaluation per iteration (a lower bound)."""
+    lanes = args[0].shape[0] if every_lane else active_lanes(args, kwargs)
+    n = args[0].shape[1]
+    if key == "nm_xy":
+        ns = kwargs.get("brute_ns", 20)
+        grid = lanes * n if every_lane else int(grid_kept(args, kwargs).sum())
+        ops = lanes * n * (12 + 22 * 3) + grid * 22 * ns * ns
+        return ops, lanes * n * (1 + 2 * 3) + grid * 2 * ns * ns
+    d = args[3].shape[1]
+    iters = int(out[2].to(torch.int64).sum())
+    ops = n * ((11 + 22 + 20 * d) * lanes + (11 + (11 + 20) + (11 + 11 + 20 * d)) * iters)
+    return ops, n * ((3 + 2 * d) * lanes + (6 + 2 * d) * iters)
+
+
+def fp64_floor(key, args, kwargs, out) -> float:
+    """ms: the optimiser's work as float64 instructions over
+    :data:`FP64_INSTR`, each square root and divide
+    :data:`SQRT_DIV_INSTR` instructions (the bound counts them as one
+    operation and the rate in flops)."""
+    ops, sqrt_div = optimiser_work(key, args, kwargs, out)
+    return 1e3 * (ops + (SQRT_DIV_INSTR - 1) * sqrt_div) / FP64_INSTR
+
+
+def one_lane(args, kwargs, i):
+    """The inputs of lane i alone."""
+    b = args[0].shape[0]
+
+    def pick(a):
+        return a[i : i + 1].contiguous() if torch.is_tensor(a) and a.ndim and a.shape[0] == b else a
+
+    return tuple(pick(a) for a in args), {k: pick(v) for k, v in kwargs.items()}
+
+
+def optimiser_rows(key, kernel, label, args, kwargs, out, ms) -> None:
+    """The optimisers' extra readings of a timed call: the active share,
+    the slowest lane alone beside the whole call (close: the call is
+    latency bound), the float64 instruction floor, the bound beside the
+    one over every lane and atom and, for nm_xy, the atoms the grid
+    cull keeps."""
+    from pywindow_torch.ops import nm_kernels
+
+    lanes = args[0].shape[0]
+    if key == "lbfgsb_stable":
+        its = out[2]
+    else:
+        its = torch.zeros(lanes, dtype=torch.int32, device=args[0].device)
+        nm_kernels.nm_xy_flat_cuda(*args, **kwargs, iterations=its)
+    i = int(torch.argmax(its))
+    lane_args, lane_kwargs = one_lane(args, kwargs, i)
+    alone = time_ms(lambda: kernel(*lane_args, **lane_kwargs))
+    print(
+        f"    {key} {label}: active lanes {active_lanes(args, kwargs)} of {lanes}; "
+        f"slowest lane {i} ({int(its[i])} iterations) alone {alone:.4f} ms vs the call {ms:.4f} ms; "
+        f"fp64 instruction floor {fp64_floor(key, args, kwargs, out):.5f} ms"
+    )
+    print(
+        f"    {key} {label}: bound {bound(key, args, kwargs, out)[0]:.4e} ms over the work "
+        f"this call needs, {bound(key, args, kwargs, out, every_lane=True)[0]:.4e} ms "
+        "over every lane and atom"
+    )
+    if key == "nm_xy":
+        kept = grid_kept(args, kwargs).to(torch.float64)
+        print(
+            f"    nm_xy {label}: grid cull keeps {float(kept.mean()):.1f} atoms a lane on average, "
+            f"{int(kept.max())} at most, of {args[0].shape[1]}"
+        )
+
+
+def timed_calls(key, calls) -> list:
+    """(label, args, kwargs) of the recorded calls that phase 3 times: the
+    first of each main-path label, PUDXES first (the record's row); for
+    lbfgsb_stable the first of each label and d, the pore (d = 3) and
+    the window z (d = 1)."""
+    timed = []
+    for label in ("PUDXES", "REYMAL", SWEEP_LABEL, PERIODIC_LABEL):
+        mine = [c for c in calls if c[0] == label]
+        if key == "lbfgsb_stable":
+            for d in (3, 1):
+                timed += [(f"{label} d={d}", a, k) for _, a, k in mine if a[3].shape[1] == d][:1]
+        else:
+            timed += mine[:1]
+    return timed
 
 
 def phase_kernels() -> dict[str, dict]:
@@ -611,12 +739,7 @@ def phase_kernels() -> dict[str, dict]:
                 for dt in ((torch.float32, torch.float64) if label in large else (torch.float32,))
             ]
         else:
-            # the record's row: the PUDXES single run (the first)
-            timed = [
-                next(c for c in calls if c[0] == label)
-                for label in ("PUDXES", "REYMAL", SWEEP_LABEL, PERIODIC_LABEL)
-                if any(c[0] == label for c in calls)
-            ]
+            timed = timed_calls(key, calls)
         rows = []
         for label, args, kwargs in timed:
             ms = time_ms(lambda a=args, k=kwargs: kernel_fn(*a, **k))
@@ -638,6 +761,8 @@ def phase_kernels() -> dict[str, dict]:
                     f"    iterations per lane: max {int(nit.max())}, "
                     f"total {int(nit.sum())} over {nit.numel()} lanes"
                 )
+            if key in ("lbfgsb_stable", "nm_xy"):
+                optimiser_rows(key, kernel_fn, label, args, kwargs, out, ms)
         print(
             f"kernel {key}: {len(calls)} calls checked, "
             f"max abs err {worst:.3e} ({dtypes[-1]})"

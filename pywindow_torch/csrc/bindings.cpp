@@ -114,13 +114,18 @@ void dbscan(const at::Tensor& points, const at::Tensor& valid,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+const uint8_t* optional_bytes(const c10::optional<at::Tensor>& t) {
+  return t.has_value() ? static_cast<const uint8_t*>(t->data_ptr()) : nullptr;
+}
+
 void lbfgsb_stable(const at::Tensor& coords, const at::Tensor& vdw,
                    const at::Tensor& origin, const at::Tensor& x0,
                    const at::Tensor& lower, const at::Tensor& upper,
-                   at::Tensor x, at::Tensor fun, at::Tensor nit,
-                   at::Tensor converged, at::Tensor capped, double sign,
-                   int64_t maxiter, int64_t m, int64_t maxls, double pgtol,
-                   double factr, double fd_step) {
+                   const c10::optional<at::Tensor>& active, at::Tensor x,
+                   at::Tensor fun, at::Tensor nit, at::Tensor converged,
+                   at::Tensor capped, double sign, int64_t maxiter, int64_t m,
+                   int64_t maxls, double pgtol, double factr, double fd_step,
+                   int64_t threads, bool reg_cap) {
   const c10::cuda::CUDAGuard guard(coords.device());
   const pw::LbfgsbParams params{sign,
                                 static_cast<int>(maxiter),
@@ -132,23 +137,30 @@ void lbfgsb_stable(const at::Tensor& coords, const at::Tensor& vdw,
   pw::lbfgsb_stable(coords.data_ptr<double>(), vdw.data_ptr<double>(),
                     origin.data_ptr<double>(), x0.data_ptr<double>(),
                     lower.data_ptr<double>(), upper.data_ptr<double>(),
-                    x.data_ptr<double>(), fun.data_ptr<double>(),
-                    nit.data_ptr<int32_t>(), bytes(converged), bytes(capped),
-                    dim(coords, 0), dim(coords, 1), dim(x0, 1), params,
-                    current_stream(coords));
+                    optional_bytes(active), x.data_ptr<double>(),
+                    fun.data_ptr<double>(), nit.data_ptr<int32_t>(),
+                    bytes(converged), bytes(capped), dim(coords, 0),
+                    dim(coords, 1), dim(x0, 1), params,
+                    static_cast<int>(threads), reg_cap, current_stream(coords));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void nm_xy(const at::Tensor& coords, const at::Tensor& vdw,
-           const at::Tensor& zanchor, const at::Tensor& half, at::Tensor xy,
-           at::Tensor f, at::Tensor capped, int64_t brute_ns, int64_t maxiter,
-           double xatol, double fatol) {
+           const at::Tensor& zanchor, const at::Tensor& half,
+           const c10::optional<at::Tensor>& active, at::Tensor xy,
+           at::Tensor f, at::Tensor capped,
+           const c10::optional<at::Tensor>& iterations, int64_t brute_ns,
+           int64_t maxiter, double xatol, double fatol, int64_t threads) {
   const c10::cuda::CUDAGuard guard(coords.device());
+  int32_t* iters =
+      iterations.has_value() ? iterations->data_ptr<int32_t>() : nullptr;
   pw::nm_xy(coords.data_ptr<double>(), vdw.data_ptr<double>(),
             zanchor.data_ptr<double>(), half.data_ptr<double>(),
-            xy.data_ptr<double>(), f.data_ptr<double>(), bytes(capped),
-            dim(coords, 0), dim(coords, 1), static_cast<int>(brute_ns),
-            static_cast<int>(maxiter), xatol, fatol, current_stream(coords));
+            optional_bytes(active), xy.data_ptr<double>(),
+            f.data_ptr<double>(), bytes(capped), iters, dim(coords, 0),
+            dim(coords, 1), static_cast<int>(brute_ns),
+            static_cast<int>(maxiter), xatol, fatol,
+            static_cast<int>(threads), current_stream(coords));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -63,8 +63,12 @@ void dbscan(const double* points, const uint8_t* valid, const double* eps,
 
 // lbfgsb_stable.cu: the stable L-BFGS-B per lane, d = 3 (pore centre,
 // identity axis embedding) or d = 1 (window z, z-axis embedding).
-// coords (B,N,3), vdw (B,N), origin (B,3), x0/lower/upper (B,d) ->
-// x (B,d), fun (B,), nit (B,) int32, converged (B,), capped (B,).
+// coords (B,N,3), vdw (B,N), origin (B,3), x0/lower/upper (B,d),
+// active (B,) or null (every lane active) -> x (B,d), fun (B,), nit (B,)
+// int32, converged (B,), capped (B,); an inactive lane writes (x0, 0, 0,
+// 0, 0).  threads: the block of one lane, a multiple of 32, <= 256;
+// reg_cap: one-warp lanes (threads is then 32) held to 170 registers a
+// thread, so that 12 lanes an SM are in flight.
 struct LbfgsbParams {
   double sign;  // objective = sign * 2 * clearance
   int maxiter;
@@ -76,19 +80,22 @@ struct LbfgsbParams {
 };
 void lbfgsb_stable(const double* coords, const double* vdw,
                    const double* origin, const double* x0,
-                   const double* lower, const double* upper, double* x,
-                   double* fun, int32_t* nit, uint8_t* converged,
-                   uint8_t* capped, int B, int N, int d,
-                   const LbfgsbParams& params, void* stream);
+                   const double* lower, const double* upper,
+                   const uint8_t* active, double* x, double* fun,
+                   int32_t* nit, uint8_t* converged, uint8_t* capped, int B,
+                   int N, int d, const LbfgsbParams& params, int threads,
+                   bool reg_cap, void* stream);
 
 // nm_xy.cu: the window-xy brute grid (brute_ns x brute_ns, inclusive,
 // x outer, first minimum) and the Nelder-Mead polish per lane; coords
-// (L,N,3) rotated molecules, vdw (L,N), zanchor (L,), half (L,) ->
-// xy (L,2), f (L,), capped (L,).
+// (L,N,3) rotated molecules, vdw (L,N), zanchor (L,), half (L,), active
+// (L,) or null -> xy (L,2), f (L,), capped (L,), and, when not null,
+// iterations (L,) int32; an inactive lane writes ((0, 0), 0, 0, 0).
+// threads: the block of one lane, a multiple of 32, <= 256.
 void nm_xy(const double* coords, const double* vdw, const double* zanchor,
-           const double* half, double* xy, double* f, uint8_t* capped, int L,
-           int N, int brute_ns, int maxiter, double xatol, double fatol,
-           void* stream);
+           const double* half, const uint8_t* active, double* xy, double* f,
+           uint8_t* capped, int32_t* iterations, int L, int N, int brute_ns,
+           int maxiter, double xatol, double fatol, int threads, void* stream);
 
 // clearance_min.cu: min_i(|x_i - p| - vdw_i) of Q probes (Q,3) against
 // N atoms, coords (N,3) and vdw (N,), padded atoms parked far away with

@@ -24,23 +24,41 @@
 //
 // What bounds it: a lane is a long chain of dependent scalar decisions
 // (tens of iterations, each a line search of 1-20 evaluations), and each
-// evaluation is 1-3 passes over the molecule's atoms with a sqrt and a
-// divide per atom in double precision.  So the kernel is latency-bound
-// per lane and throughput-bound in double-precision sqrt/divide over a
-// batch; it moves almost no memory.  Design: one warp per lane (one
-// block of 32 threads); the lane's molecule (N x 4 doubles, 15 KB for
-// 468 atoms) is staged in shared memory; every thread runs the scalar
-// state machine redundantly, so decisions need no broadcast, and the
-// threads split the atoms of each clearance pass, reduced by warp
-// shuffles that leave the same minimum in every thread.
+// evaluation is a pass over the molecule's atoms with 6 + 2d double
+// square roots and divides per atom, each a ~10-instruction Newton
+// sequence on this card.  Over a batch that is well under a millisecond
+// of FP64 pipe time; a call is bound by its slowest lane's latency: the
+// length of the per-atom chains a thread walks, the reductions that end
+// every pass, and the scalar state machine between them.  It moves almost
+// no memory, and there is no matrix product, so neither the tensor cores
+// nor TMA apply (a lane stages < 15 KB once).  Design:
+// - a lane is one block of several warps (lbfgsb_kernels.lane_threads);
+//   its molecule (N x 4 doubles) is staged in shared memory and its atoms
+//   are split over all threads, so a thread walks 1-2 atoms, not 6-15;
+// - every thread runs the scalar state machine redundantly, so decisions
+//   need no broadcast; minima are block-wide (block_min.cuh: shuffles,
+//   one slot per warp, one barrier), leaving the same value everywhere;
+// - one fused sweep per line-search evaluation: the difference at x and
+//   the clearance at q = x + stp d are independent and interleave, |q - a|
+//   is computed once and its terms stay in registers (APT atoms a thread)
+//   until m0(q) is reduced, and then the d FD differences at q finish
+//   from the registers: two reductions an evaluation where there were
+//   three passes and three reductions;
+// - the clearance at the new iterate is the last evaluation's m0(q)
+//   (x + stp d is q to the bit), so an iteration starts with no pass;
+// - the curvature history is a ring in shared memory (every thread
+//   writes the same values) and the state has no runtime-indexed array,
+//   so nothing lives in local memory.
 #include <cuda_runtime.h>
 
+#include "block_min.cuh"
 #include "kernels.h"
 #include "sweep.cuh"
 
 namespace {
 
 constexpr int MAXCOR = 10;  // scipy maxcor default; the history limit
+constexpr int MAX_THREADS = 256;
 constexpr double FTOL = 1e-3;
 constexpr double GTOL = 0.9;
 constexpr double XTOL = 0.1;
@@ -60,12 +78,6 @@ __device__ __forceinline__ double tmin(double a, double b) {
 __device__ __forceinline__ double tsign(double a) {
   return a > 0.0 ? 1.0 : (a < 0.0 ? -1.0 : a);
 }
-__device__ __forceinline__ double warp_min(double v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = fmin(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
 
 template <int D>
 __device__ __forceinline__ double dot(const double* a, const double* b) {
@@ -82,15 +94,35 @@ __device__ __forceinline__ void matvec(const double (&bm)[D][D],
   for (int i = 0; i < D; ++i) out[i] = dot<D>(bm[i], v);
 }
 
-// The lane's problem: molecule in shared memory, embedding, bounds.
-template <int D>
+// (2 s.e + |s|^2) / (|e + s| + |e|) for e = p - a, |e|^2 = eb2, |e| = eb:
+// the symbolic difference |p + s - a| - |p - a| (clearance_diff's order)
+__device__ __forceinline__ double sym_delta(const double* s, double s2,
+                                            double e0, double e1, double e2,
+                                            double eb2, double eb) {
+  const double g = s[0] * e0 + s[1] * e1 + s[2] * e2;
+  const double num = 2.0 * g + s2;
+  const double dp = sqrt(tmax(eb2 + num, 0.0));
+  const double den = eb + dp;
+  return num / (den == 0.0 ? 1.0 : den);
+}
+
+// The terms of |q - a| a thread keeps for its first APT atoms
+// (tid + j * threads) between the two halves of an evaluation.
+template <int APT>
+struct QTerms {
+  double d0[APT], d1[APT], d2[APT], db2[APT], db[APT], c[APT];
+};
+
+// The lane's problem: molecule in shared memory, embedding, bounds, and
+// the block's reduction buffers.
+template <int D, int APT>
 struct Problem {
   const double* sx;
   const double* sy;
   const double* sz;
   const double* sr;
   int n;
-  int lane;
+  pw::BlockMin red;
   double org[3];
   double lo[D];
   double up[D];
@@ -117,53 +149,6 @@ struct Problem {
     }
   }
 
-  // clearance min_i(|p - a_i| - r_i)
-  __device__ double clearance(const double* p) const {
-    double c = BIG;
-    for (int a = lane; a < n; a += 32) {
-      const double d0 = p[0] - sx[a];
-      const double d1 = p[1] - sy[a];
-      const double d2 = p[2] - sz[a];
-      c = fmin(c, sqrt(d0 * d0 + d1 * d1 + d2 * d2) - sr[a]);
-    }
-    return warp_min(c);
-  }
-
-  // min_i((c_i - m0) + delta_i(s_k)) at p, for K displacements s_k (3-D)
-  template <int K>
-  __device__ void diff_min(const double* p, double m0, const double (&s)[K][3],
-                           double* out) const {
-    double best[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) best[k] = BIG;
-    for (int a = lane; a < n; a += 32) {
-      const double d0 = p[0] - sx[a];
-      const double d1 = p[1] - sy[a];
-      const double d2 = p[2] - sz[a];
-      const double db2 = d0 * d0 + d1 * d1 + d2 * d2;
-      const double db = sqrt(db2);
-      const double base = (db - sr[a]) - m0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const double g = s[k][0] * d0 + s[k][1] * d1 + s[k][2] * d2;
-        const double s2 = s[k][0] * s[k][0] + s[k][1] * s[k][1] + s[k][2] * s[k][2];
-        const double num = 2.0 * g + s2;
-        const double dp = sqrt(tmax(db2 + num, 0.0));
-        const double den = db + dp;
-        const double delta = num / (den == 0.0 ? 1.0 : den);
-        best[k] = fmin(best[k], base + delta);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) out[k] = warp_min(best[k]);
-  }
-
-  __device__ double f_abs(const double* u) const {
-    double p[3];
-    point3(u, p);
-    return sign2 * clearance(p);
-  }
-
   // scipy's FD step at q: absolute fd_step, 1-sided bound adjustment
   __device__ void fd_h(const double* q, double* h) const {
 #pragma unroll
@@ -180,41 +165,137 @@ struct Problem {
     }
   }
 
-  // FD gradient at q with steps h
-  __device__ void grad(const double* q, const double* h, double* g) const {
-    double p[3];
-    point3(q, p);
-    const double m0 = clearance(p);
-    double s[D][3];
+  // The first half of an evaluation, one sweep over the thread's atoms:
+  // the clearance terms at pq (kept in t for the first APT atoms) and,
+  // with WITH_X, min_i((c_i(px) - m0x) + delta_i(sd)) at px.  Returns
+  // the thread's partial minima (cq, dx).
+  template <bool WITH_X>
+  __device__ void sweep_q(const double* pq, const double* px, double m0x,
+                          const double* sd, double s2d, QTerms<APT>& t,
+                          double& cq, double& dx) const {
+    const int tid = threadIdx.x;
+    const int nt = blockDim.x;
+    cq = BIG;
+    dx = BIG;
+#pragma unroll
+    for (int j = 0; j < APT; ++j) {
+      const int a = tid + j * nt;
+      if (a < n) {
+        const double ax = sx[a], ay = sy[a], az = sz[a], ar = sr[a];
+        t.d0[j] = pq[0] - ax;
+        t.d1[j] = pq[1] - ay;
+        t.d2[j] = pq[2] - az;
+        t.db2[j] = t.d0[j] * t.d0[j] + t.d1[j] * t.d1[j] + t.d2[j] * t.d2[j];
+        t.db[j] = sqrt(t.db2[j]);
+        t.c[j] = t.db[j] - ar;
+        cq = fmin(cq, t.c[j]);
+        if (WITH_X) {
+          const double e0 = px[0] - ax;
+          const double e1 = px[1] - ay;
+          const double e2 = px[2] - az;
+          const double eb2 = e0 * e0 + e1 * e1 + e2 * e2;
+          const double eb = sqrt(eb2);
+          const double base = (eb - ar) - m0x;
+          dx = fmin(dx, base + sym_delta(sd, s2d, e0, e1, e2, eb2, eb));
+        }
+      }
+    }
+    for (int a = tid + APT * nt; a < n; a += nt) {
+      const double ax = sx[a], ay = sy[a], az = sz[a], ar = sr[a];
+      const double d0 = pq[0] - ax;
+      const double d1 = pq[1] - ay;
+      const double d2 = pq[2] - az;
+      cq = fmin(cq, sqrt(d0 * d0 + d1 * d1 + d2 * d2) - ar);
+      if (WITH_X) {
+        const double e0 = px[0] - ax;
+        const double e1 = px[1] - ay;
+        const double e2 = px[2] - az;
+        const double eb2 = e0 * e0 + e1 * e1 + e2 * e2;
+        const double eb = sqrt(eb2);
+        const double base = (eb - ar) - m0x;
+        dx = fmin(dx, base + sym_delta(sd, s2d, e0, e1, e2, eb2, eb));
+      }
+    }
+  }
+
+  // The second half: the FD differences min_i((c_i - m0) + delta_i(s_k))
+  // at pq for the D steps s_k, from the kept terms (atoms beyond the
+  // cache recompute theirs, with the same operations), reduced.
+  __device__ void finish_fd(const double* pq, double m0, const double* h,
+                            const QTerms<APT>& t, double* g) {
+    double s[D][3], s2[D], out[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       double e[D];
 #pragma unroll
       for (int j = 0; j < D; ++j) e[j] = (j == k) ? h[k] : 0.0;
       embed(e, s[k]);
+      s2[k] = s[k][0] * s[k][0] + s[k][1] * s[k][1] + s[k][2] * s[k][2];
+      out[k] = BIG;
     }
-    double out[D];
-    diff_min<D>(p, m0, s, out);
+    const int tid = threadIdx.x;
+    const int nt = blockDim.x;
+#pragma unroll
+    for (int j = 0; j < APT; ++j) {
+      if (tid + j * nt < n) {
+        const double base = t.c[j] - m0;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          out[k] = fmin(out[k], base + sym_delta(s[k], s2[k], t.d0[j], t.d1[j],
+                                                 t.d2[j], t.db2[j], t.db[j]));
+        }
+      }
+    }
+    for (int a = tid + APT * nt; a < n; a += nt) {
+      const double d0 = pq[0] - sx[a];
+      const double d1 = pq[1] - sy[a];
+      const double d2 = pq[2] - sz[a];
+      const double db2 = d0 * d0 + d1 * d1 + d2 * d2;
+      const double db = sqrt(db2);
+      const double base = (db - sr[a]) - m0;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        out[k] = fmin(out[k], base + sym_delta(s[k], s2[k], d0, d1, d2, db2, db));
+      }
+    }
+    red(out);
 #pragma unroll
     for (int k = 0; k < D; ++k) g[k] = (sign2 * out[k]) / h[k];
   }
 
-  // (f(x + disp) - f(x), FD gradient at x + disp); m0x = clearance at x
+  // FD gradient at q with steps h; returns the clearance at q
+  __device__ double grad(const double* q, const double* h, double* g) {
+    double pq[3];
+    point3(q, pq);
+    QTerms<APT> t;
+    double cq[1], dx;
+    sweep_q<false>(pq, pq, 0.0, pq, 0.0, t, cq[0], dx);
+    red(cq);
+    finish_fd(pq, cq[0], h, t, g);
+    return cq[0];
+  }
+
+  // (f(x + disp) - f(x), FD gradient at q = x + disp, clearance at q);
+  // m0x = clearance at x
   __device__ double phi(const double* x, double m0x, const double* dvec,
-                        double stp, double* gvec) const {
-    double disp[D], q[D], h[D], px[3];
+                        double stp, double* gvec, double& m0q) {
+    double disp[D], q[D], h[D], px[3], pq[3], sd[3];
 #pragma unroll
     for (int k = 0; k < D; ++k) disp[k] = stp * dvec[k];
 #pragma unroll
     for (int k = 0; k < D; ++k) q[k] = x[k] + disp[k];
     fd_h(q, h);
     point3(x, px);
-    double s[1][3];
-    embed(disp, s[0]);
-    double delta;
-    diff_min<1>(px, m0x, s, &delta);
-    grad(q, h, gvec);
-    return sign2 * delta;
+    point3(q, pq);
+    embed(disp, sd);
+    const double s2d = sd[0] * sd[0] + sd[1] * sd[1] + sd[2] * sd[2];
+    QTerms<APT> t;
+    double v[2];
+    sweep_q<true>(pq, px, m0x, sd, s2d, t, v[1], v[0]);
+    red(v);
+    m0q = v[1];
+    finish_fd(pq, m0q, h, t, gvec);
+    return sign2 * v[0];
   }
 
   __device__ double pg_max(const double* x, const double* g) const {
@@ -315,11 +396,12 @@ __device__ Step dcstep(const Step& st, double fp, double dp, double stpmin,
 }
 
 // dcsrch in delta space (f0 = 0); returns whether the search failed.
-template <int D>
-__device__ bool dcsrch(const Problem<D>& pr, const double* x, double m0x,
+// m0_out: the clearance at x + stp_out * dvec (the last evaluation's q).
+template <int D, int APT>
+__device__ bool dcsrch(Problem<D, APT>& pr, const double* x, double m0x,
                        const double* dvec, const double* g_vec0, double stp0,
                        double stpmax, int maxfev, double& stp_out,
-                       double& f_out, double* g_out) {
+                       double& f_out, double* g_out, double& m0_out) {
   const double f0 = 0.0;
   const double stpmin = 0.0;
   const double g0 = dot<D>(g_vec0, dvec);
@@ -334,7 +416,8 @@ __device__ bool dcsrch(const Problem<D>& pr, const double* x, double m0x,
   bool done = false;
   bool conv = false;
   double gvec[D];
-  double f = pr.phi(x, m0x, dvec, stp0, gvec);
+  double m0q;
+  double f = pr.phi(x, m0x, dvec, stp0, gvec, m0q);
 
   while (!done && nfev < maxfev + 1) {
     const double stp = st.stp;
@@ -384,7 +467,7 @@ __device__ bool dcsrch(const Problem<D>& pr, const double* x, double m0x,
     if (force_stx) stp_n = nw.stx;
     nw.stp = stp_n;
 
-    f = pr.phi(x, m0x, dvec, stp_n, gvec);
+    f = pr.phi(x, m0x, dvec, stp_n, gvec, m0q);
     st = nw;
     stage1 = stage1_n;
     stmin = stmin_n;
@@ -397,6 +480,7 @@ __device__ bool dcsrch(const Problem<D>& pr, const double* x, double m0x,
   const bool entry_error = (g0 >= 0.0) || (stp0 > stpmax) || (stp0 < stpmin);
   stp_out = st.stp;
   f_out = f;
+  m0_out = m0q;
 #pragma unroll
   for (int k = 0; k < D; ++k) g_out[k] = gvec[k];
   return !(done || conv) || entry_error;
@@ -404,47 +488,72 @@ __device__ bool dcsrch(const Problem<D>& pr, const double* x, double m0x,
 
 // ---- Cauchy point, subspace step, B matrix ------------------------------
 
+// B from theta * I and the col newest pairs of the history ring (slot of
+// the oldest: head), oldest first
 template <int D>
-__device__ void build_b(const double (&sh)[MAXCOR][D],
-                        const double (&yh)[MAXCOR][D], int col, double theta,
-                        double (&bm)[D][D]) {
+__device__ void build_b(const double* hs, const double* hy, int head, int col,
+                        int m, double theta, double (&bm)[D][D]) {
 #pragma unroll
   for (int i = 0; i < D; ++i) {
 #pragma unroll
     for (int j = 0; j < D; ++j) bm[i][j] = theta * (i == j ? 1.0 : 0.0);
   }
   for (int k = 0; k < col; ++k) {
+    int slot = head + k;
+    if (slot >= m) slot -= m;
+    double sk[D], yk[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      sk[i] = hs[slot * D + i];
+      yk[i] = hy[slot * D + i];
+    }
     double bs[D];
-    matvec<D>(bm, sh[k], bs);
-    const double sbs = dot<D>(sh[k], bs);
-    const double sy = dot<D>(sh[k], yh[k]);
+    matvec<D>(bm, sk, bs);
+    const double sbs = dot<D>(sk, bs);
+    const double sy = dot<D>(sk, yk);
     const double sbs_s = (sbs == 0.0) ? 1.0 : sbs;
     const double sy_s = (sy == 0.0) ? 1.0 : sy;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        bm[i][j] = bm[i][j] - (bs[i] * bs[j]) / sbs_s + (yh[k][i] * yh[k][j]) / sy_s;
+        bm[i][j] = bm[i][j] - (bs[i] * bs[j]) / sbs_s + (yk[i] * yk[j]) / sy_s;
       }
     }
   }
 }
 
-// first index of the minimum (strict <), as torch.argmin
+// first index of the minimum (strict <), as torch.argmin, and the value
 template <int D>
-__device__ __forceinline__ int argmin(const double* v) {
+__device__ __forceinline__ int argmin(const double* v, double& vmin) {
   int idx = 0;
+  vmin = v[0];
 #pragma unroll
   for (int k = 1; k < D; ++k) {
-    if (v[k] < v[idx]) idx = k;
+    if (v[k] < vmin) {
+      idx = k;
+      vmin = v[k];
+    }
   }
   return idx;
 }
 
+// v[idx] for a runtime idx, as a select chain (no local memory)
 template <int D>
-__device__ void cauchy(const Problem<D>& pr, const double* x, const double* g,
-                       const double (&bm)[D][D], double theta, double epsmch,
-                       double* xcp_z, bool* moving) {
+__device__ __forceinline__ double pick(const double* v, int idx) {
+  double out = v[0];
+#pragma unroll
+  for (int k = 1; k < D; ++k) {
+    if (k == idx) out = v[k];
+  }
+  return out;
+}
+
+template <int D, int APT>
+__device__ void cauchy(const Problem<D, APT>& pr, const double* x,
+                       const double* g, const double (&bm)[D][D],
+                       double theta, double epsmch, double* xcp_z,
+                       bool* moving) {
   double t_break[D], dvec[D], z[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) {
@@ -468,8 +577,8 @@ __device__ void cauchy(const Problem<D>& pr, const double* x, const double* g,
     double t_cand[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) t_cand[k] = moving[k] ? t_break[k] : BIG;
-    const int b = argmin<D>(t_cand);
-    const double t_next = t_cand[b];
+    double t_next;
+    const int b = argmin<D>(t_cand, t_next);
     const double dt = t_next - t_old;
     const bool inside = (dtm < dt) || (t_next >= BIG);
     const bool freeze = found || inside;
@@ -479,13 +588,16 @@ __device__ void cauchy(const Problem<D>& pr, const double* x, const double* g,
       for (int k = 0; k < D; ++k) xcp_z[k] = z[k] + step * dvec[k];
     }
     if (!freeze) {
-      const double zb = (dvec[b] > 0.0 ? pr.up[b] : pr.lo[b]) - x[b];
+      const double zb = (pick<D>(dvec, b) > 0.0 ? pick<D>(pr.up, b) : pick<D>(pr.lo, b)) -
+                        pick<D>(x, b);
 #pragma unroll
       for (int k = 0; k < D; ++k) {
         z[k] = (k == b) ? zb : z[k] + dt * dvec[k];
+        if (k == b) {
+          dvec[k] = 0.0;
+          moving[k] = false;
+        }
       }
-      dvec[b] = 0.0;
-      moving[b] = false;
       t_old = t_next;
     }
     found = found || inside;
@@ -515,10 +627,10 @@ __device__ void solve_small(const double (&a)[D][D], const double* rhs,
   out[2] = (c02 * rhs[0] + c12 * rhs[1] + c22 * rhs[2]) / det;
 }
 
-template <int D>
-__device__ void subsm(const Problem<D>& pr, const double* x, const double* g,
-                      const double (&bm)[D][D], const double* xcp,
-                      const bool* free, double* z_out) {
+template <int D, int APT>
+__device__ void subsm(const Problem<D, APT>& pr, const double* x,
+                      const double* g, const double (&bm)[D][D],
+                      const double* xcp, const bool* free, double* z_out) {
   double freef[D], diff[D], bdiff[D], r[D], rhs[D], dsub[D];
   bool any_free = false;
 #pragma unroll
@@ -566,9 +678,11 @@ __device__ void subsm(const Problem<D>& pr, const double* x, const double* g,
     if (free[k] && dsub[k] > 0.0) c = (up_gap <= 0.0) ? 0.0 : up_gap / safe_d;
     cand[k] = c;
   }
-  const int ibd = argmin<D>(cand);
-  const double alpha = tmin(cand[ibd], 1.0);
-  const double bound_b = dsub[ibd] > 0.0 ? pr.up[ibd] : pr.lo[ibd];
+  double cand_min;
+  const int ibd = argmin<D>(cand, cand_min);
+  const double alpha = tmin(cand_min, 1.0);
+  const double bound_b =
+      pick<D>(dsub, ibd) > 0.0 ? pick<D>(pr.up, ibd) : pick<D>(pr.lo, ibd);
   const bool use_alpha = iword && (dd_p > 0.0);
 #pragma unroll
   for (int k = 0; k < D; ++k) {
@@ -581,35 +695,53 @@ __device__ void subsm(const Problem<D>& pr, const double* x, const double* g,
 
 // ---- mainlb ---------------------------------------------------------------
 
-template <int D>
-__global__ void lbfgsb_kernel(const double* __restrict__ coords,
-                              const double* __restrict__ vdw,
-                              const double* __restrict__ origin,
-                              const double* __restrict__ x0,
-                              const double* __restrict__ lower,
-                              const double* __restrict__ upper,
-                              double* __restrict__ x_out,
-                              double* __restrict__ fun_out,
-                              int32_t* __restrict__ nit_out,
-                              uint8_t* __restrict__ conv_out,
-                              uint8_t* __restrict__ capped_out, int N,
-                              pw::LbfgsbParams prm) {
-  extern __shared__ unsigned char smem_raw[];
-  double* sx = reinterpret_cast<double*>(smem_raw);
+// REG_CAP: one-warp lanes held to 170 registers a thread (12 blocks an
+// SM), so that a batch of 1,584 lanes is in flight at once
+template <int D, int APT, bool REG_CAP>
+__global__ void __launch_bounds__(REG_CAP ? 32 : MAX_THREADS, REG_CAP ? 12 : 1)
+    lbfgsb_kernel(const double* __restrict__ coords,
+                  const double* __restrict__ vdw,
+                  const double* __restrict__ origin,
+                  const double* __restrict__ x0,
+                  const double* __restrict__ lower,
+                  const double* __restrict__ upper,
+                  const uint8_t* __restrict__ active,
+                  double* __restrict__ x_out, double* __restrict__ fun_out,
+                  int32_t* __restrict__ nit_out,
+                  uint8_t* __restrict__ conv_out,
+                  uint8_t* __restrict__ capped_out, int N,
+                  pw::LbfgsbParams prm) {
+  const int b = blockIdx.x;
+  if (active != nullptr && active[b] == 0) {
+    // a slot that holds no window: its outputs are never read
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) x_out[D * b + k] = x0[D * b + k];
+      fun_out[b] = 0.0;
+      nit_out[b] = 0;
+      conv_out[b] = 0;
+      capped_out[b] = 0;
+    }
+    return;
+  }
+  extern __shared__ double smem[];
+  double* sx = smem;
   double* sy = sx + N;
   double* sz = sy + N;
   double* sr = sz + N;
-  const int b = blockIdx.x;
+  double* red_buf = sr + N;
+  double* hs = red_buf + pw::kBlockMinDoubles;  // history ring, MAXCOR x D
+  double* hy = hs + MAXCOR * D;
   pw::stage_atoms(coords + static_cast<size_t>(b) * N * 3,
                   vdw + static_cast<size_t>(b) * N, N, sx, sy, sz, sr);
 
-  Problem<D> pr;
+  Problem<D, APT> pr;
   pr.sx = sx;
   pr.sy = sy;
   pr.sz = sz;
   pr.sr = sr;
   pr.n = N;
-  pr.lane = threadIdx.x;
+  pr.red = pw::BlockMin{red_buf, 0};
   pr.sign2 = prm.sign * 2.0;
   pr.fd_step = prm.fd_step;
   for (int c = 0; c < 3; ++c) pr.org[c] = origin[3 * b + c];
@@ -626,40 +758,31 @@ __global__ void lbfgsb_kernel(const double* __restrict__ coords,
   const double epsmch = EPS64;  // finfo(float64).eps
   const int m = prm.m;
 
-  double fx = pr.f_abs(x);
-  double g[D], h0[D];
+  // f and the FD gradient at the start; p(x + 0.0) equals p(x) in value,
+  // so the gradient's clearance is f's (and the first iteration's m0x)
+  double g[D], h0[D], xq[D];
   pr.fd_h(x, h0);
-  {
-    double xq[D];
 #pragma unroll
-    for (int k = 0; k < D; ++k) xq[k] = x[k] + 0.0;
-    pr.grad(xq, h0, g);
-  }
+  for (int k = 0; k < D; ++k) xq[k] = x[k] + 0.0;
+  double m0x = pr.grad(xq, h0, g);
+  double fx = pr.sign2 * m0x;
 
-  double sh[MAXCOR][D], yh[MAXCOR][D];
-  for (int r = 0; r < MAXCOR; ++r) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      sh[r][k] = 0.0;
-      yh[r][k] = 0.0;
-    }
-  }
   double theta = 1.0;
-  int n_pairs = 0, it = 0, trips = 0;
+  int n_pairs = 0, head = 0, it = 0, trips = 0;
   bool done = false, conv = false;
 
   while (!done && it < prm.maxiter && trips < 2 * prm.maxiter + 4 &&
          pr.pg_max(x, g) > prm.pgtol) {
     const int col = min(n_pairs, m);
     double bm[D][D];
-    build_b<D>(sh, yh, col, theta, bm);
+    build_b<D>(hs, hy, head, col, m, theta, bm);
     double xcp_z[D], xcp[D], z[D], dvec[D];
     bool free[D];
-    cauchy<D>(pr, x, g, bm, theta, epsmch, xcp_z, free);
+    cauchy<D, APT>(pr, x, g, bm, theta, epsmch, xcp_z, free);
 #pragma unroll
     for (int k = 0; k < D; ++k) xcp[k] = x[k] + xcp_z[k];
     if (col > 0) {
-      subsm<D>(pr, x, g, bm, xcp, free, z);
+      subsm<D, APT>(pr, x, g, bm, xcp, free, z);
     } else {
 #pragma unroll
       for (int k = 0; k < D; ++k) z[k] = xcp[k];
@@ -684,12 +807,9 @@ __global__ void lbfgsb_kernel(const double* __restrict__ coords,
     const double inv_dnorm = 1.0 / (dnorm == 0.0 ? 1.0 : dnorm);
     const double stp0 = (first && !boxed) ? tmin(inv_dnorm, stpmx) : 1.0;
 
-    double px[3];
-    pr.point3(x, px);
-    const double m0x = pr.clearance(px);
-    double stp, fdelta, gn[D];
-    const bool ls_failed =
-        dcsrch<D>(pr, x, m0x, dvec, g, stp0, stpmx, prm.maxls, stp, fdelta, gn);
+    double stp, fdelta, gn[D], m0n;
+    const bool ls_failed = dcsrch<D, APT>(pr, x, m0x, dvec, g, stp0, stpmx,
+                                          prm.maxls, stp, fdelta, gn, m0n);
 
     double xn[D];
     bool stalled = true;
@@ -720,25 +840,20 @@ __global__ void lbfgsb_kernel(const double* __restrict__ coords,
     int n_pairs_n = n_pairs;
     double theta_n = theta;
     if (store) {
-      if (n_pairs >= m) {  // shift left, newest last
-        for (int r = 0; r < m - 1; ++r) {
+      // full: the newest pair replaces the oldest (head moves on);
+      // every thread writes the same values, and every thread has read
+      // the ring (build_b) before any passed this iteration's barriers
+      int slot = head + n_pairs;
+      if (n_pairs >= m) {
+        slot = head;
+        head = (head + 1 == m) ? 0 : head + 1;
+      } else if (slot >= m) {
+        slot -= m;
+      }
 #pragma unroll
-          for (int k = 0; k < D; ++k) {
-            sh[r][k] = sh[r + 1][k];
-            yh[r][k] = yh[r + 1][k];
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          sh[m - 1][k] = s[k];
-          yh[m - 1][k] = y[k];
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          sh[n_pairs][k] = s[k];
-          yh[n_pairs][k] = y[k];
-        }
+      for (int k = 0; k < D; ++k) {
+        hs[slot * D + k] = s[k];
+        hy[slot * D + k] = y[k];
       }
       n_pairs_n = n_pairs + 1;
       theta_n = dot<D>(y, y) / (dr == 0.0 ? 1.0 : dr);
@@ -758,6 +873,7 @@ __global__ void lbfgsb_kernel(const double* __restrict__ coords,
         g[k] = gn[k];
       }
       fx = fn;
+      m0x = m0n;  // the clearance at xn: the last evaluation's q is xn
       it += 1;
     }
     theta = theta_n;
@@ -778,33 +894,57 @@ __global__ void lbfgsb_kernel(const double* __restrict__ coords,
   }
 }
 
-template <int D>
+template <int D, int APT, bool REG_CAP>
 void launch(const double* coords, const double* vdw, const double* origin,
             const double* x0, const double* lower, const double* upper,
-            double* x, double* fun, int32_t* nit, uint8_t* conv,
-            uint8_t* capped, int B, int N, const pw::LbfgsbParams& prm,
-            void* stream) {
-  const size_t smem = pw::sweep_smem_bytes<double>(N);
-  pw::allow_smem(lbfgsb_kernel<D>, smem);
-  lbfgsb_kernel<D><<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      coords, vdw, origin, x0, lower, upper, x, fun, nit, conv, capped, N,
-      prm);
+            const uint8_t* active, double* x, double* fun, int32_t* nit,
+            uint8_t* conv, uint8_t* capped, int B, int N,
+            const pw::LbfgsbParams& prm, int threads, void* stream) {
+  const size_t smem =
+      sizeof(double) * (static_cast<size_t>(4) * N + pw::kBlockMinDoubles + 2 * MAXCOR * D);
+  pw::allow_smem(lbfgsb_kernel<D, APT, REG_CAP>, smem);
+  lbfgsb_kernel<D, APT, REG_CAP>
+      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          coords, vdw, origin, x0, lower, upper, active, x, fun, nit, conv,
+          capped, N, prm);
+}
+
+// The variant: one-warp lanes held to 170 registers with one cached atom
+// a thread (reg_cap: a batch too large for one wave of wider lanes);
+// else two cached atoms a thread, which cover the molecule up to 512
+// atoms at 256 threads (a larger one's other atoms are recomputed by
+// the overflow loops of sweep_q and finish_fd, with the same operations)
+template <int D>
+void launch_d(const double* coords, const double* vdw, const double* origin,
+              const double* x0, const double* lower, const double* upper,
+              const uint8_t* active, double* x, double* fun, int32_t* nit,
+              uint8_t* conv, uint8_t* capped, int B, int N,
+              const pw::LbfgsbParams& prm, int threads, bool reg_cap,
+              void* stream) {
+  if (reg_cap) {
+    launch<D, 1, true>(coords, vdw, origin, x0, lower, upper, active, x, fun,
+                       nit, conv, capped, B, N, prm, 32, stream);
+  } else {
+    launch<D, 2, false>(coords, vdw, origin, x0, lower, upper, active, x, fun,
+                        nit, conv, capped, B, N, prm, threads, stream);
+  }
 }
 
 }  // namespace
 
 void pw::lbfgsb_stable(const double* coords, const double* vdw,
                        const double* origin, const double* x0,
-                       const double* lower, const double* upper, double* x,
-                       double* fun, int32_t* nit, uint8_t* converged,
-                       uint8_t* capped, int B, int N, int d,
-                       const LbfgsbParams& params, void* stream) {
+                       const double* lower, const double* upper,
+                       const uint8_t* active, double* x, double* fun,
+                       int32_t* nit, uint8_t* converged, uint8_t* capped,
+                       int B, int N, int d, const LbfgsbParams& params,
+                       int threads, bool reg_cap, void* stream) {
   if (B <= 0) return;
   if (d == 3) {
-    launch<3>(coords, vdw, origin, x0, lower, upper, x, fun, nit, converged,
-              capped, B, N, params, stream);
+    launch_d<3>(coords, vdw, origin, x0, lower, upper, active, x, fun, nit,
+                converged, capped, B, N, params, threads, reg_cap, stream);
   } else {
-    launch<1>(coords, vdw, origin, x0, lower, upper, x, fun, nit, converged,
-              capped, B, N, params, stream);
+    launch_d<1>(coords, vdw, origin, x0, lower, upper, active, x, fun, nit,
+                converged, capped, B, N, params, threads, reg_cap, stream);
   }
 }

@@ -93,6 +93,13 @@ def check_inputs(
     return next(iter(devices))
 
 
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on an H100):
+    the optimiser wrappers size their lane blocks by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 #: shared memory a block may use on the card (227 KB of the SM's 256 KB)
 SMEM_LIMIT = 232448
 
@@ -110,3 +117,30 @@ def check_shape(name: str, t: torch.Tensor, shape: tuple, what: str) -> None:
     if tuple(t.shape) != tuple(shape):
         msg = f"{name}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}"
         raise ValueError(msg)
+
+
+def check_active(name: str, active: torch.Tensor | None, lanes: int) -> None:
+    """Raise unless ``active`` is None or a contiguous (lanes,) bool
+    tensor (the per-lane flag of the optimiser kernels)."""
+    if active is None:
+        return
+    if active.dtype != torch.bool:
+        msg = f"{name}: active must be a bool tensor"
+        raise TypeError(msg)
+    check_shape(name, active, (lanes,), "active")
+
+
+def on_active_lanes(active, fn, lane_args: tuple, placeholders: tuple) -> tuple:
+    """``fn(*lane_args)`` on the lanes where ``active`` is True, scattered
+    into ``placeholders`` (full-size outputs holding what an inactive
+    lane's kernel block writes); every lane when ``active`` is None.
+    The plain versions' form of the kernels' early exit: lanes are
+    independent, so an active lane's result does not depend on the
+    others."""
+    if active is None:
+        return fn(*lane_args)
+    idx = torch.nonzero(active).flatten()
+    if idx.numel():
+        for full, part in zip(placeholders, fn(*(a[idx] for a in lane_args))):
+            full[idx] = part
+    return placeholders

@@ -13,7 +13,9 @@
 
 Inputs are flat lane batches: coords (B, N, 3) with padded atoms at
 ``FAR_AWAY`` and vdW 0, vdw (B, N), origin (B, 3), x0/lower/upper
-(B, d), all float64 (:data:`~pywindow_torch.config.OPT_DTYPE`).
+(B, d), all float64 (:data:`~pywindow_torch.config.OPT_DTYPE`), and
+optionally ``active`` (B,) bool: an inactive lane does no work and
+returns the placeholder ``(x0, 0, 0, False, False)``.
 Returns ``(x (B, d), fun (B,), nit (B,) int32, converged (B,),
 capped (B,))``.
 """
@@ -50,6 +52,19 @@ def _check_emb(emb: tuple, d: int) -> None:
         raise ValueError(msg)
 
 
+def _placeholders(x0: torch.Tensor) -> tuple:
+    """What an inactive lane returns: its start, 0, 0 iterations, not
+    converged, not capped."""
+    b = x0.shape[0]
+    return (
+        x0.clone(),
+        torch.zeros(b, dtype=x0.dtype, device=x0.device),
+        torch.zeros(b, dtype=torch.int32, device=x0.device),
+        torch.zeros(b, dtype=torch.bool, device=x0.device),
+        torch.zeros(b, dtype=torch.bool, device=x0.device),
+    )
+
+
 def lbfgsb_stable_flat_plain(
     coords: torch.Tensor,
     vdw: torch.Tensor,
@@ -58,6 +73,7 @@ def lbfgsb_stable_flat_plain(
     lower: torch.Tensor,
     upper: torch.Tensor,
     *,
+    active: torch.Tensor | None = None,
     emb: tuple = EMB_XYZ,
     sign: float = -1.0,
     maxiter: int = 50,
@@ -68,28 +84,48 @@ def lbfgsb_stable_flat_plain(
     fd_step: float = _FD_ABS_STEP,
 ):
     """The stable L-BFGS-B over B lanes as plain tensor code (see the
-    module docstring)."""
+    module docstring); with ``active``, only the active lanes run."""
     _check_emb(emb, x0.shape[-1])
-    mol = unmasked(coords, vdw)
     sign2 = sign * 2.0
 
-    def point3(u):
-        return origin + _embed(u, emb)
+    def run(coords, vdw, origin, x0, lower, upper):
+        mol = unmasked(coords, vdw)
 
-    def probe(x, disp, h):
-        delta = clearance_diff(point3(x), _embed(disp, emb)[:, None, :], mol)[:, 0]
-        steps = _embed(torch.diag_embed(h), emb)  # (B, d, 3)
-        dprobe = clearance_diff(point3(x + disp), steps, mol)
-        return sign2 * delta, (sign2 * dprobe) / h
+        def point3(u):
+            return origin + _embed(u, emb)
 
-    def f_abs(x):
-        return sign2 * clearance_field(point3(x)[:, None, :], mol)[:, 0]
+        def probe(x, disp, h):
+            delta = clearance_diff(point3(x), _embed(disp, emb)[:, None, :], mol)[:, 0]
+            steps = _embed(torch.diag_embed(h), emb)  # (B, d, 3)
+            dprobe = clearance_diff(point3(x + disp), steps, mol)
+            return sign2 * delta, (sign2 * dprobe) / h
 
-    res = lbfgsb_minimize_stable(
-        probe, f_abs, x0, lower, upper, m=m, maxiter=maxiter, pgtol=pgtol,
-        factr=factr, maxls=maxls, fd_step=fd_step,
+        def f_abs(x):
+            return sign2 * clearance_field(point3(x)[:, None, :], mol)[:, 0]
+
+        res = lbfgsb_minimize_stable(
+            probe, f_abs, x0, lower, upper, m=m, maxiter=maxiter, pgtol=pgtol,
+            factr=factr, maxls=maxls, fd_step=fd_step,
+        )
+        return res.x, res.fun, res.nit.to(torch.int32), res.converged, res.capped
+
+    return _cuda.on_active_lanes(
+        active, run, (coords, vdw, origin, x0, lower, upper), _placeholders(x0)
     )
-    return res.x, res.fun, res.nit.to(torch.int32), res.converged, res.capped
+
+
+def lane_launch(lanes: int, n: int, sms: int) -> tuple[int, bool]:
+    """(threads of one lane's block, register cap) for ``lanes`` lanes of
+    ``n`` atoms on a card of ``sms`` SMs, as measured on the H100
+    (PERF.md, ``optim_kernel_report.py``): up to 4 lanes an SM take 4
+    warps each, 8 beyond 256 atoms, so that a lane's atoms spread over
+    the block (a PUDXES lane: 1-2 atoms a thread); a larger batch, which
+    would not fit one wave of those (a wider lane needs 230-255
+    registers a thread, 2 blocks an SM), takes one warp a lane held to
+    170 registers a thread, 12 lanes an SM in flight."""
+    if lanes > 4 * sms:
+        return 32, True
+    return (256 if n > 256 else 128), False
 
 
 def lbfgsb_stable_flat_cuda(
@@ -100,6 +136,7 @@ def lbfgsb_stable_flat_cuda(
     lower: torch.Tensor,
     upper: torch.Tensor,
     *,
+    active: torch.Tensor | None = None,
     emb: tuple = EMB_XYZ,
     sign: float = -1.0,
     maxiter: int = 50,
@@ -114,7 +151,7 @@ def lbfgsb_stable_flat_cuda(
     name = "lbfgsb_stable"
     device = _cuda.check_inputs(
         name, torch.float64, coords=coords, vdw=vdw, origin=origin, x0=x0,
-        lower=lower, upper=upper,
+        lower=lower, upper=upper, **({} if active is None else {"active": active}),
     )
     if coords.ndim != 3 or x0.ndim != 2:
         msg = f"{name}: coords (B, N, 3) and x0 (B, d), got {coords.shape}, {x0.shape}"
@@ -126,19 +163,20 @@ def lbfgsb_stable_flat_cuda(
     _cuda.check_shape(name, origin, (b, 3), "origin")
     for key, t in (("lower", lower), ("upper", upper)):
         _cuda.check_shape(name, t, (b, d), key)
+    _cuda.check_active(name, active, b)
     if not 1 <= m <= MAX_M:
         msg = f"{name}: m={m} outside 1..{MAX_M}"
         raise ValueError(msg)
-    _cuda.check_smem(name, 4 * n * 8)
+    _cuda.check_smem(name, 4 * n * 8 + 4096)
     x = torch.empty((b, d), dtype=torch.float64, device=device)
     fun = torch.empty(b, dtype=torch.float64, device=device)
     nit = torch.empty(b, dtype=torch.int32, device=device)
     conv = torch.empty(b, dtype=torch.bool, device=device)
     capped = torch.empty(b, dtype=torch.bool, device=device)
     _cuda.load_extension().lbfgsb_stable(
-        coords, vdw, origin, x0, lower, upper, x, fun, nit, conv, capped,
+        coords, vdw, origin, x0, lower, upper, active, x, fun, nit, conv, capped,
         float(sign), int(maxiter), int(m), int(maxls), float(pgtol),
-        float(factr), float(fd_step),
+        float(factr), float(fd_step), *lane_launch(b, n, _cuda.sm_count(device)),
     )
     _cuda.LAUNCHES["lbfgsb_stable"] += 1
     return x, fun, nit, conv, capped

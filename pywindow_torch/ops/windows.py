@@ -149,15 +149,16 @@ def _apply(rot: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _z_minimize(rmol, xy, z0, z_lower, z_up, stable, maxiter):
+def _z_minimize(rmol, xy, z0, z_lower, z_up, stable, maxiter, active):
     """Window z by L-BFGS-B on ``f(z) = 2 * clearance((xy, z))``
     (reference ``optimise_z``, utilities.py:1174-1188), one lane per
-    window; returns (z (L, 1), capped (L,))."""
+    window; returns (z (L, 1), capped (L,)).  In "stable" mode only the
+    ``active`` lanes run."""
     if stable:
         zero = torch.zeros_like(xy[:, :1])
         x, _, _, _, capped = lbfgsb_stable_flat(
             rmol.coords, rmol.vdw, torch.cat([xy, zero], -1), z0, z_lower,
-            z_up, emb=EMB_Z, sign=1.0, maxiter=maxiter,
+            z_up, active=active, emb=EMB_Z, sign=1.0, maxiter=maxiter,
         )
         return x, capped
 
@@ -173,6 +174,7 @@ def _window_refine(
     mol: MolArrays,
     vector: torch.Tensor,
     new_z: torch.Tensor,
+    active: torch.Tensor,
     cfg: AnalysisConfig,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Refine the W windows of B frames from their widest sampling rays,
@@ -180,7 +182,9 @@ def _window_refine(
 
     ``mol`` is the pore-centred batch (B, N); ``vector`` (B, W, 3) the
     widest rays; ``new_z`` (B, W) the distance of each ray's narrowest
-    point (from the fine re-sampling).  Runs in
+    point (from the fine re-sampling); ``active`` (B, W) the slots that
+    hold a window (the others' results are never read: in "stable" mode
+    their optimiser lanes do no work and return placeholders).  Runs in
     :data:`~pywindow_torch.config.OPT_DTYPE` (rotation included) and
     returns (diameter (B, W), centre (B, W, 3), capped (B, W)) in that
     dtype.  In "stable" mode the z and xy stages are the
@@ -194,6 +198,7 @@ def _window_refine(
     mol = mol.to(OPT_DTYPE)
     vector = vector.to(OPT_DTYPE).reshape(lanes, 3)
     new_z = new_z.to(OPT_DTYPE).reshape(lanes)
+    active = active.reshape(lanes).contiguous()
     dtype, device = vector.dtype, vector.device
 
     def per_lane(t):  # (B, N, ...) -> (B * W, N, ...), contiguous for the kernels
@@ -217,7 +222,7 @@ def _window_refine(
     z_up = torch.full_like(z_lower, 1e10)
     xy0 = torch.zeros((lanes, 2), dtype=dtype, device=device)
     z0 = torch.zeros((lanes, 1), dtype=dtype, device=device)
-    zx, capped = _z_minimize(rmol, xy0, z0, z_lower, z_up, stable, opt_maxiter)
+    zx, capped = _z_minimize(rmol, xy0, z0, z_lower, z_up, stable, opt_maxiter, active)
     z_star = zx[:, 0]
 
     # xy brute grid + Nelder-Mead polish (utilities.py:1307-1317)
@@ -227,8 +232,8 @@ def _window_refine(
         # symbolic-difference form, so the grid argmin and every
         # Nelder-Mead comparison see full-precision differences
         xy_star, _, nm_capped = nm_xy_flat(
-            rmol.coords, rmol.vdw, z_star, half, brute_ns=cfg.brute_ns,
-            maxiter=nm_maxiter,
+            rmol.coords, rmol.vdw, z_star, half, active=active,
+            brute_ns=cfg.brute_ns, maxiter=nm_maxiter,
         )
     else:
 
@@ -247,7 +252,7 @@ def _window_refine(
 
     if cfg.z_second_mini:
         zx2, capped2 = _z_minimize(
-            rmol, xy_star, zx, z_lower, z_up, stable, opt_maxiter
+            rmol, xy_star, zx, z_lower, z_up, stable, opt_maxiter, active
         )
         z_star = zx2[:, 0]
         capped = capped | capped2
@@ -333,7 +338,8 @@ def find_windows(
     )
 
     # empty window slots refine any valid surviving ray instead of a
-    # garbage vector, so their discarded optimiser lanes stop early
+    # garbage vector (the stable optimiser lanes skip them outright; the
+    # classic drivers stop early there)
     fallback_sel = torch.where(survives, path.width, -BIG).argmax(-1)
 
     # widest-ray selection + fine 0.1 Å re-sampling for all W slots
@@ -346,7 +352,7 @@ def find_windows(
     refined = rays.fine_path_analysis(vectors, shifted, cfg.increment2, l2)
 
     diams, centres, w_capped = _window_refine(
-        shifted, vectors, refined.dist, cfg
+        shifted, vectors, refined.dist, exists, cfg
     )
     diams, centres = diams.to(dtype), centres.to(dtype)
     failed = exists & ~refined.ok

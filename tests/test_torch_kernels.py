@@ -320,3 +320,178 @@ def _pudxes():
     lines = (DATA / "PUDXES.xyz").read_text().splitlines()[2:]
     body = [ln.split() for ln in lines if ln.strip()]
     return np.array([b[0] for b in body]), np.array([[float(v) for v in b[1:4]] for b in body])
+
+
+# -- the redesigned optimiser kernels: active lanes, waves, ties ------------
+
+
+def _window_lanes(coords, vdw, seed, device):
+    """Window-z / window-xy lane inputs for padded shells: xy offsets,
+    z anchors, grid half-widths, z bounds."""
+    rng = np.random.default_rng(seed)
+    lanes = coords.shape[0]
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float64, device=device)
+
+    xy = f(rng.normal(scale=0.5, size=(lanes, 2)))
+    origin = torch.cat([xy, torch.zeros_like(xy[:, :1])], -1)
+    lo = f(-rng.uniform(1, 4, (lanes, 1)))
+    return {
+        "origin": origin,
+        "x0": torch.zeros((lanes, 1), dtype=torch.float64, device=device),
+        "lo": lo,
+        "up": torch.full_like(lo, 1e10),
+        "z": f(rng.normal(scale=0.5, size=lanes)),
+        "half": f(rng.uniform(1.0, 3.0, lanes)),
+    }
+
+
+def _equal(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_inactive_lanes_do_no_work_and_leave_the_active_ones_alone(cuda):
+    """d = 1 lbfgsb_stable and nm_xy with every other lane inactive (and a
+    run of three): the active lanes equal a run without the flag to the
+    bit, the inactive ones hold the placeholders, and the plain versions
+    agree within the optimisers' tolerance (synthetic shells; the real
+    window lanes are held with torch.equal below)."""
+    coords, vdw = _cages(12, 8, cuda)
+    w = _window_lanes(coords, vdw, 8, cuda)
+    active = torch.tensor([True, False] * 4 + [False, False, False, True], device=cuda)
+    kw = dict(emb=lbfgsb_kernels.EMB_Z, sign=1.0, maxiter=40)
+    args = (coords, vdw, w["origin"], w["x0"], w["lo"], w["up"])
+    full = lbfgsb_kernels.lbfgsb_stable_flat_cuda(*args, **kw)
+    part = lbfgsb_kernels.lbfgsb_stable_flat_cuda(*args, active=active, **kw)
+    plain = lbfgsb_kernels.lbfgsb_stable_flat_plain(*args, active=active, **kw)
+    torch.cuda.synchronize()
+    assert _equal([p[active] for p in part], [f[active] for f in full])
+    assert torch.equal(part[0][~active], w["x0"][~active])
+    assert not bool(part[2][~active].any()) and not bool(part[4][~active].any())
+    _assert_optimiser_lanes(part[0], part[1], part[4], plain[0], plain[1], plain[4])
+    nm_args = (coords, vdw, w["z"], w["half"])
+    full = nm_kernels.nm_xy_flat_cuda(*nm_args, maxiter=400)
+    part = nm_kernels.nm_xy_flat_cuda(*nm_args, active=active, maxiter=400)
+    plain = nm_kernels.nm_xy_flat_plain(*nm_args, active=active, maxiter=400)
+    torch.cuda.synchronize()
+    assert _equal([p[active] for p in part], [f[active] for f in full])
+    assert not bool(part[0][~active].any()) and not bool(part[2][~active].any())
+    _assert_optimiser_lanes(*part, *plain)
+
+
+@pytest.mark.parametrize("threads", [64, 128])
+def test_nm_xy_kernel_more_than_one_wave(cuda, monkeypatch, threads):
+    """5,120 lanes (several waves at either block width): each lane
+    equals the same lane run alone, and the plain version within the
+    optimisers' tolerance (on these synthetic shells the plain version's
+    f may differ from the kernel's in the last bits)."""
+    base, vdw = _cages(16, 9, cuda)
+    coords = base.repeat(320, 1, 1).contiguous()
+    vdw = vdw.repeat(320, 1).contiguous()
+    w = _window_lanes(coords, vdw, 9, cuda)
+    monkeypatch.setattr(nm_kernels, "lane_threads", lambda lanes, n, sms: threads)
+    got = nm_kernels.nm_xy_flat_cuda(coords, vdw, w["z"], w["half"], maxiter=400)
+    for i in (0, 1777, 5119):
+        one = nm_kernels.nm_xy_flat_cuda(
+            coords[i : i + 1], vdw[i : i + 1], w["z"][i : i + 1], w["half"][i : i + 1], maxiter=400
+        )
+        assert _equal([g[i : i + 1] for g in got], one)
+    want = nm_kernels.nm_xy_flat_plain(coords, vdw, w["z"], w["half"], maxiter=400)
+    torch.cuda.synchronize()
+    _assert_optimiser_lanes(*got, *want)
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+def test_optimiser_kernels_reymal_size_lanes(cuda, monkeypatch, threads):
+    """N = 468 atoms padded to 472 (REYMAL's size): more atoms than the
+    registers of 32-128 threads hold, at every block width."""
+    coords, vdw = _cages(6, 10, cuda, n=468, pad=472)
+    monkeypatch.setattr(lbfgsb_kernels, "lane_launch", lambda lanes, n, sms: (threads, False))
+    monkeypatch.setattr(nm_kernels, "lane_threads", lambda lanes, n, sms: threads)
+    mask = vdw > 0
+    wt = mask.double()
+    com = (coords * wt[..., None]).sum(1) / wt.sum(1, keepdim=True)
+    d = torch.sqrt(((coords - com[:, None]) ** 2).sum(-1)) - vdw
+    r = torch.where(mask, d, 1e30).amin(-1)[:, None]
+    args = (coords, vdw, torch.zeros_like(com), com, com - r, com + r)
+    kw = dict(emb=lbfgsb_kernels.EMB_XYZ, sign=-1.0, maxiter=40)
+    got = lbfgsb_kernels.lbfgsb_stable_flat_cuda(*args, **kw)
+    want = lbfgsb_kernels.lbfgsb_stable_flat_plain(*args, **kw)
+    _assert_optimiser_lanes(got[0], got[1], got[4], want[0], want[1], want[4])
+    w = _window_lanes(coords, vdw, 10, cuda)
+    nm_args = (coords, vdw, w["z"], w["half"])
+    _assert_optimiser_lanes(*nm_kernels.nm_xy_flat_cuda(*nm_args), *nm_kernels.nm_xy_flat_plain(*nm_args))
+
+
+@pytest.mark.parametrize("ns", [3, 5])
+def test_nm_xy_grid_ties_take_the_first_minimum(cuda, ns):
+    """A molecule symmetric under x -> -x and y -> -y, so that mirrored
+    grid points tie exactly (the grid values of ns = 3 and 5 are exact),
+    with an atom on the axis so that the best points lie off it: the
+    kernel starts the polish from the same first minimum as the plain
+    version, and ends where it ends."""
+    rng = np.random.default_rng(ns)
+    quarter = np.abs(rng.normal(scale=4.0, size=(10, 3))) + [0.5, 0.5, 0.0]
+    quarter[:, 2] = rng.normal(scale=3.0, size=10)
+    atoms = np.concatenate(
+        [quarter * s for s in ([1, 1, 1], [-1, 1, 1], [1, -1, 1], [-1, -1, 1])] + [[[0.0, 0.0, 0.0]]]
+    )
+    coords = torch.tensor(atoms[None], dtype=torch.float64, device=cuda).repeat(4, 1, 1).contiguous()
+    vdw = torch.full(coords.shape[:2], 1.5, dtype=torch.float64, device=cuda)
+    z = torch.tensor([0.0, 0.5, -0.5, 1.0], dtype=torch.float64, device=cuda)
+    half = torch.tensor([1.0, 2.0, 0.5, 1.5], dtype=torch.float64, device=cuda)
+    from pywindow_torch.ops import optim
+    from pywindow_torch.ops.encoding import unmasked
+    from pywindow_torch.ops.geometry import clearance_diff
+
+    anchor = torch.stack([torch.zeros_like(z), torch.zeros_like(z), z], -1)
+    seen = []
+
+    def f_xy(xys):
+        disp = torch.cat([xys, torch.zeros_like(xys[..., :1])], -1)
+        vals = -2.0 * clearance_diff(anchor, disp, unmasked(coords, vdw))
+        seen.append(vals)
+        return vals
+
+    optim.brute_start(f_xy, torch.stack([-half, -half], -1), torch.stack([half, half], -1), ns)
+    grid = seen[0]
+    ties = (grid == grid.amin(-1, keepdim=True)).sum(-1)
+    assert bool((ties > 1).any()), "no exact tie on the grid"
+    got = nm_kernels.nm_xy_flat_cuda(coords, vdw, z, half, brute_ns=ns)
+    want = nm_kernels.nm_xy_flat_plain(coords, vdw, z, half, brute_ns=ns)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["PUDXES", "REYMAL"])
+def test_optimiser_kernels_equal_plain_on_real_window_lanes(cuda, monkeypatch, name):
+    """Every lbfgsb_stable and nm_xy call of a molecule's analysis on the
+    card (pore, window z with inactive slots, window xy) against the plain
+    version on the same inputs, with torch.equal."""
+    calls = []
+    for module, attr, key in (
+        (lbfgsb_kernels, "lbfgsb_stable_flat_cuda", "lbfgsb"),
+        (nm_kernels, "nm_xy_flat_cuda", "nm"),
+    ):
+        fn = getattr(module, attr)
+
+        def record(*args, _fn=fn, _key=key, **kwargs):
+            calls.append((_key, args, dict(kwargs)))
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, attr, record)
+    path = DATA / f"{name}.xyz"
+    pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis()
+    monkeypatch.undo()
+    assert {k for k, _, _ in calls} == {"lbfgsb", "nm"}
+    assert any(k.get("active") is not None and not bool(k["active"].all()) for _, _, k in calls)
+    for key, args, kwargs in calls:
+        if key == "lbfgsb":
+            got = lbfgsb_kernels.lbfgsb_stable_flat_cuda(*args, **kwargs)
+            want = lbfgsb_kernels.lbfgsb_stable_flat_plain(*args, **kwargs)
+        else:
+            got = nm_kernels.nm_xy_flat_cuda(*args, **kwargs)
+            want = nm_kernels.nm_xy_flat_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert _equal(got, want), (key, args[0].shape)
