@@ -22,7 +22,13 @@ result line):
    the active-lane share, the slowest lane alone beside the whole call,
    the float64 instruction floor, the bound beside the one over every
    lane and atom and, for ``nm_xy``, the atoms its grid cull keeps
-   (``nm_kernels.grid_keep``).  ``clearance_min``, which no pipeline
+   (``nm_kernels.grid_keep``).  Both ``ray_exit`` calls of a label are
+   timed (the full average-diameter call, the slim pre-analysis), with
+   each float32 call's flips printed; ``path_sweep`` is held bit for
+   bit in both dtypes; for both ray kernels the atoms their exact culls
+   keep (``ray_kernels.ray_exit_keep``, ``path_sweep_keep``), the bound
+   under the cull beside the one over every pair, and the FP32
+   instruction floor.  ``clearance_min``, which no pipeline
    stage calls, is held on three input sets in both dtypes: the shapes
    of tests/test_pallas.py with the padding case, Q = 65,536 probes
    against N = 4,096 atoms, and a 50^3 clearance grid over the rebuilt
@@ -184,6 +190,20 @@ FP64_INSTR = 132 * 64 * 1.98e9
 #: instructions of one float64 square root or divide on the card: a
 #: reciprocal estimate refined by a Newton sequence (~10 instructions)
 SQRT_DIV_INSTR = 10
+#: float32 instructions per second: 132 SMs x 128 FP32 lanes x 1.98 GHz
+#: (no FMAs: the kernels are built with -fmad=false)
+FP32_INSTR = 132 * 128 * 1.98e9
+#: instructions of one correctly rounded float32 square root on the card:
+#: a reciprocal square-root estimate and its Newton fix-up (~8)
+SQRT_F32_INSTR = 8
+#: the ray kernels' operations: ray_exit per (ray, atom) pair, per (tile,
+#: atom) cone test and per ray of cone set-up; path_sweep per (ray, atom)
+#: segment bound and per (probe, atom) clearance
+RAY_PAIR_OPS = 21
+CONE_ATOM_OPS = 35
+CONE_RAY_OPS = 30
+SEGMENT_ATOM_OPS = 30
+PROBE_OPS = 11
 
 
 def structure(name: str) -> pathlib.Path:
@@ -254,8 +274,12 @@ def wrappers():
     def dbscan_plain(points, valid, eps, min_samples, max_clusters):
         return cluster.dbscan(points, valid, eps, min_samples, max_clusters)[0]
 
+    def ray_exit_plain(unit, rel, vdw, origin, want_exit, order):
+        # the order only groups the kernel's rays
+        return ray_kernels.ray_exit_plain(unit, rel, vdw, origin, want_exit)
+
     return [
-        (ray_kernels, "ray_exit_cuda", "ray_exit", ray_kernels.ray_exit_plain),
+        (ray_kernels, "ray_exit_cuda", "ray_exit", ray_exit_plain),
         (ray_kernels, "path_sweep_cuda", "path_sweep", ray_kernels.path_sweep_plain),
         (cluster_kernels, "dbscan_labels_cuda", "dbscan", dbscan_plain),
         (lbfgsb_kernels, "lbfgsb_stable_flat_cuda", "lbfgsb_stable",
@@ -416,15 +440,15 @@ def _as(args, dtype):
     )
 
 
-def compare_ray_exit(args, kwargs, dtype):
+def compare_ray_exit(label, args, kwargs, dtype):
     from pywindow_torch.ops import ray_kernels
 
-    unit, rel, vdw, origin, want_exit = _as(args, dtype)
+    unit, rel, vdw, origin, want_exit, order = _as(args, dtype)
     # the recorded directions are float32 unit vectors; in float64 they
     # are normalised again, since the kernel's expanded |p1|^2 takes
     # |u| = 1 (a float32 |u| is 1 only to ~1e-7)
     unit = unit / torch.sqrt((unit * unit).sum(-1, keepdim=True))
-    hk, ek = ray_kernels.ray_exit_cuda(unit, rel, vdw, origin, want_exit)
+    hk, ek = ray_kernels.ray_exit_cuda(unit, rel, vdw, origin, want_exit, order)
     hp, ep = plain_call("ray_exit", ray_kernels.ray_exit_plain, unit, rel, vdw, origin, want_exit)
     torch.cuda.synchronize()
     flips = hk != hp
@@ -436,9 +460,13 @@ def compare_ray_exit(args, kwargs, dtype):
     # float32: the kernel's front test is the algebraic form of the plain
     # version's, so rays within rounding of tangency may flip
     n_flip = int(flips.sum())
+    print(
+        f"  ray_exit {label} {tuple(unit.shape)} want_exit={want_exit} float32: "
+        f"{n_flip} of {hk.numel()} rays flip against the plain version"
+    )
     check(n_flip <= 0.005 * hk.numel(), f"ray_exit f32: {n_flip} of {hk.numel()} rays flip")
     if n_flip:
-        u64, r64, v64, _, _ = _as(args, torch.float64)
+        u64, r64, v64, _, _, _ = _as(args, torch.float64)
         t_ca = (u64[..., :, None, :] * r64[..., None, :, :]).sum(-1)
         perp = r64[..., None, :, :] - t_ca[..., None] * u64[..., :, None, :]
         under = v64[..., None, :] ** 2 - (perp * perp).sum(-1)
@@ -450,7 +478,9 @@ def compare_ray_exit(args, kwargs, dtype):
     return err
 
 
-def _compare_sweep(name, kernel, plain, args, dtype):
+def _compare_sweep(name, kernel, plain, args, dtype, exact=False):
+    """ok and pos equal; cmin within 1e-9 Å (float64) or 1e-4 Å (float32),
+    or, with ``exact``, equal to the bit."""
     vectors, chunks, coords, vdw, max_steps = _as(args, dtype)
     ok_k, pos_k, c_k = kernel(vectors, chunks, coords, vdw, max_steps)
     ok_p, pos_p, c_p = plain_call(name, plain, vectors, chunks, coords, vdw, max_steps)
@@ -458,19 +488,24 @@ def _compare_sweep(name, kernel, plain, args, dtype):
     check(torch.equal(ok_k, ok_p), f"{name} {dtype}: ok differs")
     check(torch.equal(pos_k, pos_p), f"{name} {dtype}: argmin step differs")
     err = float((c_k - c_p).abs().max())
-    check(err <= (1e-9 if dtype == torch.float64 else 1e-4), f"{name} {dtype}: cmin differs by {err}")
+    tol = 0.0 if exact else (1e-9 if dtype == torch.float64 else 1e-4)
+    check(err <= tol, f"{name} {dtype}: cmin differs by {err}")
     return err
 
 
-def compare_path_sweep(args, kwargs, dtype):
+def compare_path_sweep(label, args, kwargs, dtype):
+    """Bit for bit in both dtypes: the kernel's cull keeps every atom that
+    decides an output, and the kept atoms' clearances round like the
+    plain version's."""
     from pywindow_torch.ops import ray_kernels
 
     return _compare_sweep(
-        "path_sweep", ray_kernels.path_sweep_cuda, ray_kernels.path_sweep_plain, args, dtype
+        "path_sweep", ray_kernels.path_sweep_cuda, ray_kernels.path_sweep_plain, args, dtype,
+        exact=True,
     )
 
 
-def compare_fine_path(args, kwargs, dtype):
+def compare_fine_path(label, args, kwargs, dtype):
     from pywindow_torch.ops import ray_kernels
 
     return _compare_sweep(
@@ -478,7 +513,7 @@ def compare_fine_path(args, kwargs, dtype):
     )
 
 
-def compare_dbscan(args, kwargs, dtype):
+def compare_dbscan(label, args, kwargs, dtype):
     from pywindow_torch.ops import cluster, cluster_kernels
 
     points, valid, eps, min_samples, max_clusters = _as(args, dtype)
@@ -504,7 +539,7 @@ def _compare_lanes(name, x_k, f_k, cap_k, x_p, f_p, cap_p):
     return max(float(dx.max()), float((f_k - f_p).abs().max())) if dx.numel() else 0.0
 
 
-def compare_lbfgsb(args, kwargs, dtype):
+def compare_lbfgsb(label, args, kwargs, dtype):
     from pywindow_torch.ops import lbfgsb_kernels
 
     x_k, f_k, _, _, cap_k = lbfgsb_kernels.lbfgsb_stable_flat_cuda(*args, **kwargs)
@@ -515,7 +550,7 @@ def compare_lbfgsb(args, kwargs, dtype):
     return _compare_lanes("lbfgsb_stable", x_k, f_k, cap_k, x_p, f_p, cap_p)
 
 
-def compare_nm(args, kwargs, dtype):
+def compare_nm(label, args, kwargs, dtype):
     from pywindow_torch.ops import nm_kernels
 
     xy_k, f_k, cap_k = nm_kernels.nm_xy_flat_cuda(*args, **kwargs)
@@ -524,7 +559,7 @@ def compare_nm(args, kwargs, dtype):
     return _compare_lanes("nm_xy", xy_k, f_k, cap_k, xy_p, f_p, cap_p)
 
 
-def compare_clearance(args, kwargs, dtype):
+def compare_clearance(label, args, kwargs, dtype):
     """Equal to the plain version: the same difference-form distances
     rounded op by op, and an exact minimum (held at 1e-12 Å in float64
     and 1e-5 Å in float32; the largest difference is printed)."""
@@ -567,8 +602,10 @@ def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
     evaluation per iteration) or from the grid size.  An optimiser's
     inactive lanes read their flag and write their outputs, nothing
     else, and ``nm_xy``'s grid counts the atoms its exact cull keeps;
-    ``every_lane`` counts every lane and atom instead, the count that
-    rows measured before the flag and the cull existed used."""
+    ``ray_exit`` and ``path_sweep`` count their cull pass and the atoms
+    it keeps (:func:`ray_work`).  ``every_lane`` counts every lane and
+    atom (every pair of the ray kernels) instead, the count that rows
+    measured before the flag and the culls existed used."""
     t = [a for a in args if torch.is_tensor(a)]
     dtype = t[0].dtype
     active = None if every_lane else kwargs.get("active")
@@ -581,10 +618,9 @@ def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
         in_bytes += active.numel() * active.element_size()
     outs = [o for o in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(o)]
     out_bytes = sum(o.numel() * o.element_size() for o in outs)
-    if key == "ray_exit":
-        b, p, _ = args[0].shape
-        ops = 21 * b * p * args[1].shape[1]
-    elif key in ("path_sweep", "fine_path"):
+    if key in ("ray_exit", "path_sweep"):
+        ops = ray_work(key, args, every_lane)[0]
+    elif key == "fine_path":
         vectors, chunks, coords, _, max_steps = args
         steps = torch.clamp_max(chunks.to(torch.int64) + 1, int(max_steps))
         ops = 11 * int(steps.sum()) * coords.shape[1]
@@ -600,6 +636,112 @@ def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     t_ops = ops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cull_kept(key, args) -> torch.Tensor:
+    """The atoms the ray kernels' exact culls keep: (B, tiles) for
+    ``ray_exit`` (``ray_kernels.ray_exit_keep``), (B, P) for
+    ``path_sweep`` (``path_sweep_keep``), in slices of 128 frames."""
+    from pywindow_torch.ops import ray_kernels
+
+    b = args[0].shape[0]
+    kept = []
+    for lo in range(0, b, 128):
+        part = tuple(
+            a[lo : lo + 128] if torch.is_tensor(a) and a.ndim and a.shape[0] == b else a
+            for a in args
+        )
+        if key == "ray_exit":
+            unit, rel, vdw, _, _, order = part
+            kept.append(ray_kernels.ray_exit_keep(unit, rel, vdw, order).sum(-1))
+        else:
+            kept.append(ray_kernels.path_sweep_keep(*part).sum(-1))
+    return torch.cat(kept)
+
+
+def ray_work(key, args, every_lane=False) -> tuple[int, int]:
+    """(operations, square roots) of a ray kernel's call: ``ray_exit``
+    the cone test of every (tile, atom), the cone set-up of every ray and
+    the kept (ray, atom) pairs (the ~5 exits a ray take a square root
+    more, not counted); ``path_sweep`` the origin clearance of every
+    frame that has a zero ray (``ray_kernels.path_sweep_origin_rays``:
+    the kernel answers those rays from it, with no cull and no walk), and
+    for every other ray the segment bound of each atom and the kept atoms
+    at every valid probe.  ``every_lane``: every (ray, atom) pair or
+    (probe, atom) clearance, with no cull."""
+    if key == "ray_exit":
+        unit, rel = args[0], args[1]
+        b, p, _ = unit.shape
+        n = rel.shape[1]
+        if every_lane:
+            return RAY_PAIR_OPS * b * p * n, 0
+        kept = cull_kept(key, args).to(torch.int64)  # (B, tiles)
+        tiles = kept.shape[1]
+        rays = torch.full((tiles,), 32, dtype=torch.int64, device=kept.device)
+        rays[-1] = p - 32 * (tiles - 1)
+        pairs = int((kept * rays).sum())
+        ops = CONE_ATOM_OPS * b * tiles * n + CONE_RAY_OPS * b * p + RAY_PAIR_OPS * pairs
+        return ops, b * tiles * n + 2 * b * p
+    vectors, chunks, coords, _, max_steps = args
+    b, p, _ = vectors.shape
+    n = coords.shape[1]
+    steps = torch.clamp_max(chunks.to(torch.int64) + 1, int(max_steps))
+    if every_lane:
+        probes = int(steps.sum()) * n
+        return PROBE_OPS * probes, probes
+    from pywindow_torch.ops import ray_kernels
+
+    at_origin = ray_kernels.path_sweep_origin_rays(vectors, chunks, int(max_steps))
+    walked = int((~at_origin).sum())
+    origin_probes = int(at_origin.any(-1).sum()) * n
+    evals = int((steps * cull_kept(key, args).to(torch.int64) * ~at_origin).sum())
+    ops = PROBE_OPS * origin_probes + SEGMENT_ATOM_OPS * walked * n + PROBE_OPS * evals
+    return ops, origin_probes + walked * n + evals
+
+
+def fp32_floor(key, args, every_lane=False) -> float:
+    """ms: a ray kernel's work as float32 instructions over
+    :data:`FP32_INSTR`, each square root :data:`SQRT_F32_INSTR`
+    instructions (the bound counts it as one operation)."""
+    ops, sqrts = ray_work(key, args, every_lane)
+    return 1e3 * (ops + (SQRT_F32_INSTR - 1) * sqrts) / FP32_INSTR
+
+
+def ray_rows(key, label, args) -> None:
+    """The ray kernels' extra readings of a timed call: the atoms the
+    cull keeps (per tile of 32 rays for ``ray_exit``; for ``path_sweep``
+    per ray it walks, beside the zero rays it answers from the origin
+    clearance), the bound under the cull beside the one over every pair,
+    and the FP32 instruction floor."""
+    kept = cull_kept(key, args).to(torch.float64)
+    if key == "ray_exit":
+        n, what = args[1].shape[1], "tile of 32 rays"
+        print(
+            f"    {key} {label}: the cull keeps {float(kept.mean()):.2f} atoms a {what} on average, "
+            f"{int(kept.max())} at most, of {n}"
+        )
+    else:
+        from pywindow_torch.ops import ray_kernels
+
+        n = args[2].shape[1]
+        at_origin = ray_kernels.path_sweep_origin_rays(args[0], args[1], int(args[4]))
+        walked = kept[~at_origin]
+        culled = (
+            f"the cull keeps {float(walked.mean()):.2f} atoms a ray on average, "
+            f"{int(walked.max())} at most, of {n}, on the {walked.numel()} rays it walks"
+            if walked.numel() else "no ray is walked"
+        )
+        print(
+            f"    {key} {label}: {int(at_origin.sum())} of {at_origin.numel()} rays are zero rays "
+            f"answered from the origin clearance; {culled}"
+        )
+    cull_ops, all_ops = ray_work(key, args)[0], ray_work(key, args, every_lane=True)[0]
+    print(
+        f"    {key} {label}: bound {bound(key, args, {}, ())[0]:.4e} ms over the work the cull "
+        f"leaves ({cull_ops:.4e} operations), {bound(key, args, {}, (), every_lane=True)[0]:.4e} ms "
+        f"over every pair ({all_ops:.4e}); fp32 instruction floor {fp32_floor(key, args):.4e} ms "
+        f"({fp32_floor(key, args, every_lane=True):.4e} ms over every pair)"
+    )
 
 
 def active_lanes(args, kwargs) -> int:
@@ -702,13 +844,17 @@ def timed_calls(key, calls) -> list:
     """(label, args, kwargs) of the recorded calls that phase 3 times: the
     first of each main-path label, PUDXES first (the record's row); for
     lbfgsb_stable the first of each label and d, the pore (d = 3) and
-    the window z (d = 1)."""
+    the window z (d = 1); for ray_exit the first of each label and form,
+    the full average-diameter call, then the slim pre-analysis."""
     timed = []
     for label in ("PUDXES", "REYMAL", SWEEP_LABEL, PERIODIC_LABEL):
         mine = [c for c in calls if c[0] == label]
         if key == "lbfgsb_stable":
             for d in (3, 1):
                 timed += [(f"{label} d={d}", a, k) for _, a, k in mine if a[3].shape[1] == d][:1]
+        elif key == "ray_exit":
+            for want, form in ((True, "full"), (False, "slim")):
+                timed += [(f"{label} {form}", a, k) for _, a, k in mine if a[4] == want][:1]
         else:
             timed += mine[:1]
     return timed
@@ -722,9 +868,9 @@ def phase_kernels() -> dict[str, dict]:
         check(len(calls) > 0, f"{key}: the main path never reached the kernel")
         compare, dtypes = COMPARE[key]
         worst = 0.0
-        for _, args, kwargs in calls:
+        for label, args, kwargs in calls:
             for dtype in dtypes:
-                err = compare(args, kwargs, dtype)
+                err = compare(label, args, kwargs, dtype)
                 if dtype == dtypes[-1]:
                     worst = max(worst, err)
         kernel_fn, plain_fn = fns[key]
@@ -763,6 +909,8 @@ def phase_kernels() -> dict[str, dict]:
                 )
             if key in ("lbfgsb_stable", "nm_xy"):
                 optimiser_rows(key, kernel_fn, label, args, kwargs, out, ms)
+            if key in ("ray_exit", "path_sweep"):
+                ray_rows(key, label, args)
         print(
             f"kernel {key}: {len(calls)} calls checked, "
             f"max abs err {worst:.3e} ({dtypes[-1]})"

@@ -25,21 +25,26 @@ int dim(const at::Tensor& t, int i) { return static_cast<int>(t.size(i)); }
 template <typename T>
 void ray_exit_t(const at::Tensor& unit, const at::Tensor& rel,
                 const at::Tensor& vdw, const at::Tensor& origin,
-                at::Tensor& any_front, at::Tensor& max_exit, bool want_exit) {
+                const int32_t* order, at::Tensor& any_front,
+                at::Tensor& max_exit, bool want_exit) {
   pw::ray_exit(unit.data_ptr<T>(), rel.data_ptr<T>(), vdw.data_ptr<T>(),
-               origin.data_ptr<T>(), bytes(any_front), max_exit.data_ptr<T>(),
-               dim(unit, 0), dim(unit, 1), dim(rel, 1), want_exit,
-               current_stream(unit));
+               origin.data_ptr<T>(), order, bytes(any_front),
+               max_exit.data_ptr<T>(), dim(unit, 0), dim(unit, 1), dim(rel, 1),
+               want_exit, current_stream(unit));
 }
 
 void ray_exit(const at::Tensor& unit, const at::Tensor& rel,
               const at::Tensor& vdw, const at::Tensor& origin,
-              at::Tensor any_front, at::Tensor max_exit, bool want_exit) {
+              at::Tensor any_front, at::Tensor max_exit, bool want_exit,
+              const at::Tensor& order) {
   const c10::cuda::CUDAGuard guard(unit.device());
+  const int32_t* ord = order.data_ptr<int32_t>();
   if (unit.scalar_type() == at::kDouble) {
-    ray_exit_t<double>(unit, rel, vdw, origin, any_front, max_exit, want_exit);
+    ray_exit_t<double>(unit, rel, vdw, origin, ord, any_front, max_exit,
+                       want_exit);
   } else {
-    ray_exit_t<float>(unit, rel, vdw, origin, any_front, max_exit, want_exit);
+    ray_exit_t<float>(unit, rel, vdw, origin, ord, any_front, max_exit,
+                      want_exit);
   }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -59,16 +64,21 @@ void sweep_t(Fn fn, const at::Tensor& vectors, const at::Tensor& chunks,
 void path_sweep(const at::Tensor& vectors, const at::Tensor& chunks,
                 const at::Tensor& coords, const at::Tensor& vdw,
                 at::Tensor ok, at::Tensor pos, at::Tensor cmin,
-                int64_t max_steps) {
+                int64_t max_steps, int64_t rays_per_warp) {
   const c10::cuda::CUDAGuard guard(vectors.device());
+  const int rpw = static_cast<int>(rays_per_warp);
+  auto launch = [rpw](auto vec, auto ch, auto co, auto vd, auto ok_,
+                      auto pos_, auto cmin_, int b, int p, int n, int steps,
+                      void* stream) {
+    pw::path_sweep(vec, ch, co, vd, ok_, pos_, cmin_, b, p, n, steps, rpw,
+                   stream);
+  };
   if (vectors.scalar_type() == at::kDouble) {
-    sweep_t<double>(
-        [](auto... a) { pw::path_sweep(a...); }, vectors, chunks, coords, vdw,
-        ok, pos, cmin, max_steps);
+    sweep_t<double>(launch, vectors, chunks, coords, vdw, ok, pos, cmin,
+                    max_steps);
   } else {
-    sweep_t<float>(
-        [](auto... a) { pw::path_sweep(a...); }, vectors, chunks, coords, vdw,
-        ok, pos, cmin, max_steps);
+    sweep_t<float>(launch, vectors, chunks, coords, vdw, ok, pos, cmin,
+                   max_steps);
   }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

@@ -20,24 +20,29 @@ namespace pw {
 constexpr double kBig = 1.0e30;
 
 // ray_exit.cu: per ray (any_front, max_exit) of B frames; unit (B,P,3),
-// rel (B,N,3), vdw (B,N), origin (B,3) -> any_front (B,P), max_exit (B,P)
+// rel (B,N,3), vdw (B,N), origin (B,3), order (P,) int32, a permutation
+// of the rays that groups them into 32-ray tiles -> any_front (B,P),
+// max_exit (B,P)
 void ray_exit(const float* unit, const float* rel, const float* vdw,
-              const float* origin, uint8_t* any_front, float* max_exit, int B,
-              int P, int N, bool want_exit, void* stream);
+              const float* origin, const int32_t* order, uint8_t* any_front,
+              float* max_exit, int B, int P, int N, bool want_exit,
+              void* stream);
 void ray_exit(const double* unit, const double* rel, const double* vdw,
-              const double* origin, uint8_t* any_front, double* max_exit,
-              int B, int P, int N, bool want_exit, void* stream);
+              const double* origin, const int32_t* order, uint8_t* any_front,
+              double* max_exit, int B, int P, int N, bool want_exit,
+              void* stream);
 
 // path_sweep.cu: per ray (ok, first-argmin step, min clearance) of B
-// frames; vectors (B,P,3), chunks (B,P) int32, coords (B,N,3), vdw (B,N)
+// frames; vectors (B,P,3), chunks (B,P) int32, coords (B,N,3), vdw (B,N);
+// rays_per_warp: rays each warp walks (any >= 1 gives the same outputs)
 void path_sweep(const float* vectors, const int32_t* chunks,
                 const float* coords, const float* vdw, uint8_t* ok,
                 int32_t* pos, float* cmin, int B, int P, int N, int max_steps,
-                void* stream);
+                int rays_per_warp, void* stream);
 void path_sweep(const double* vectors, const int32_t* chunks,
                 const double* coords, const double* vdw, uint8_t* ok,
                 int32_t* pos, double* cmin, int B, int P, int N,
-                int max_steps, void* stream);
+                int max_steps, int rays_per_warp, void* stream);
 
 // fine_path.cu: the same reduction for the W window-slot rays of B
 // frames at the fine increment; vectors (B,W,3), chunks (B,W) int32,

@@ -16,6 +16,13 @@ Each kernel has three functions here:
 
 Every function takes a leading frame axis B: rays (B, P, 3) over
 molecules (B, N, 3), one launch for all frames.
+
+``ray_exit`` and ``path_sweep`` skip, by exact bounds, the atoms that
+cannot change their outputs (``csrc/ray_exit.cu`` and
+``csrc/path_sweep.cu`` derive them).  :func:`ray_exit_keep` and
+:func:`path_sweep_keep` mirror the two rules with the kernels'
+operations; the tests and ``chip_smoke.py`` use them, the pipeline does
+not (the plain versions evaluate every atom).
 """
 
 from __future__ import annotations
@@ -27,6 +34,21 @@ from pywindow_torch.ops.geometry import BIG, pairwise_distances, sq_norm3
 
 #: the grid's frame axis (CUDA's y dimension) of ray_exit and path_sweep
 MAX_FRAMES = 65535
+
+#: rays per ray_exit tile: one warp
+RAY_TILE = 32
+#: ray_exit's cone cull: the cone is widened by CONE_ULPS unit roundoffs
+#: (plus the rays' norm error) and the margin is CULL_ULPS of them
+EXIT_CONE_ULPS = 8.0
+EXIT_CULL_ULPS = 64.0
+#: path_sweep's cull margin in unit roundoffs, and the |v|^2 at or below
+#: which a ray is treated as the origin (2^-100)
+SWEEP_CULL_ULPS = 64.0
+SWEEP_TINY_VV = 2.0**-100
+
+
+def _unit_roundoff(dtype: torch.dtype) -> float:
+    return torch.finfo(dtype).eps / 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -77,14 +99,21 @@ def ray_exit_cuda(
     rel: torch.Tensor,
     vdw: torch.Tensor,
     origin: torch.Tensor,
-    want_exit: bool = True,
+    want_exit: bool,
+    order: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`ray_exit_plain` through the CUDA kernel (``csrc/ray_exit.cu``).
 
-    The kernel's front test is the algebraic form ``t_hc > 0 and
-    t_ca + o.u > 0`` of the plain version's ``|p0|^2 < |p1|^2``, and its
-    exit is ``sqrt`` of the expanded ``|p1|^2`` after the max; in float32
-    the two may disagree on rays within rounding of tangency.
+    ``order`` (P,) int32, a permutation of the rays
+    (:func:`~pywindow_torch.ops.rays.spiral_tile_order` for the golden
+    spiral; ``torch.arange(P)`` is index order, whose tiles cull little),
+    groups them into the kernel's 32-ray tiles, each culling the
+    atoms that cannot cross any of its rays (:func:`ray_exit_keep`);
+    every output still goes to its ray's own index.  The kernel's front
+    test is the algebraic form ``t_hc > 0 and t_ca + o.u > 0`` of the
+    plain version's ``|p0|^2 < |p1|^2``, and its exit is ``sqrt`` of the
+    expanded ``|p1|^2`` after the max; in float32 the two may disagree on
+    rays within rounding of tangency.
     """
     dtype = unit.dtype
     device = _cuda.check_inputs(
@@ -98,23 +127,82 @@ def ray_exit_cuda(
     _cuda.check_shape("ray_exit", rel, (b, n, 3), "rel")
     _cuda.check_shape("ray_exit", vdw, (b, n), "vdw")
     _cuda.check_shape("ray_exit", origin, (b, 3), "origin")
+    _cuda.check_inputs("ray_exit", dtype, unit=unit, order=order)
+    _cuda.check_shape("ray_exit", order, (p,), "order")
+    if order.dtype != torch.int32:
+        msg = f"ray_exit: order must be int32, got {order.dtype}"
+        raise TypeError(msg)
     if b > MAX_FRAMES:
         msg = f"ray_exit: {b} frames in one launch (at most {MAX_FRAMES})"
         raise ValueError(msg)
     any_front = torch.empty((b, p), dtype=torch.bool, device=device)
     max_exit = torch.empty((b, p), dtype=dtype, device=device)
     _cuda.load_extension().ray_exit(
-        unit, rel, vdw, origin, any_front, max_exit, bool(want_exit)
+        unit, rel, vdw, origin, any_front, max_exit, bool(want_exit), order
     )
     _cuda.LAUNCHES["ray_exit"] += 1
     return any_front, max_exit
 
 
-def ray_exit(unit, rel, vdw, origin, want_exit: bool = True):
-    """Per ray (any_front, max_exit); see :func:`ray_exit_plain`."""
+def ray_exit(unit, rel, vdw, origin, want_exit: bool, order: torch.Tensor):
+    """Per ray (any_front, max_exit); see :func:`ray_exit_plain`
+    (``order`` groups the kernel's rays, see :func:`ray_exit_cuda`; the
+    plain version has no use for it)."""
     if _cuda.device_type("ray_exit", unit) == "cuda":
-        return ray_exit_cuda(unit, rel, vdw, origin, want_exit)
+        return ray_exit_cuda(unit, rel, vdw, origin, want_exit, order)
     return ray_exit_plain(unit, rel, vdw, origin, want_exit)
+
+
+def _butterfly_lane0(t: torch.Tensor) -> torch.Tensor:
+    """Lane 0's sum of a warp's xor-butterfly (offsets 16 .. 1, its own
+    value first) over the axis -2 of size 32: the kernel's order."""
+    for half in (16, 8, 4, 2, 1):
+        t = t[..., :half, :] + t[..., half : 2 * half, :]
+    return t[..., 0, :]
+
+
+def ray_exit_keep(
+    unit: torch.Tensor, rel: torch.Tensor, vdw: torch.Tensor, order: torch.Tensor
+) -> torch.Tensor:
+    """(B, T, N) bool: the atoms each 32-ray tile of ``ray_exit``'s kernel
+    keeps, by its cone rule with its operations (``csrc/ray_exit.cu`` has
+    the derivation); tile k holds the rays ``order[32k : 32k + 32]``."""
+    b, p, _ = unit.shape
+    dtype, device = unit.dtype, unit.device
+    tiles = -(-p // RAY_TILE)
+    idx = torch.full((tiles * RAY_TILE,), -1, dtype=torch.int64, device=device)
+    idx[:p] = order.to(torch.int64)
+    live = (idx >= 0).reshape(tiles, RAY_TILE)
+    u = unit[:, idx.clamp_min(0)].reshape(b, tiles, RAY_TILE, 3)
+    u = torch.where(live[None, :, :, None], u, 0.0)
+    s = _butterfly_lane0(u)  # (B, T, 3)
+    norm = torch.sqrt(sq_norm3(s))
+    a0, a1, a2 = (s[..., k] / norm for k in range(3))
+    u0, u1, u2 = u[..., 0], u[..., 1], u[..., 2]
+    a0l, a1l, a2l = a0[..., None], a1[..., None], a2[..., None]
+    c = (a0l * u0 + a1l * u1 + a2l * u2).abs()
+    x0 = a1l * u2 - a2l * u1
+    x1 = a2l * u0 - a0l * u2
+    x2 = a0l * u1 - a1l * u0
+    sn = torch.sqrt(x0 * x0 + x1 * x1 + x2 * x2)
+    e = ((u0 * u0 + u1 * u1 + u2 * u2) - 1.0).abs()
+    c = torch.where(live, c, torch.inf).amin(-1)
+    sn = torch.where(live, sn, 0.0).amax(-1)
+    uroff = _unit_roundoff(dtype)
+    e = torch.where(live, e, 0.0).amax(-1) + 4.0 * uroff
+    widen = EXIT_CONE_ULPS * uroff + e
+    cos_lo, sin_hi = (c - widen)[..., None], (sn + widen)[..., None]
+    coef = (EXIT_CULL_ULPS * (uroff + e))[..., None]
+    r0, r1, r2 = (rel[:, None, :, k] for k in range(3))  # (B, 1, N)
+    h = (a0l * r0 + a1l * r1 + a2l * r2).abs()
+    c0 = a1l * r2 - a2l * r1
+    c1 = a2l * r0 - a0l * r2
+    c2 = a0l * r1 - a1l * r0
+    lhs = torch.sqrt(c0 * c0 + c1 * c1 + c2 * c2) * cos_lo - h * sin_hi
+    r = vdw[:, None, :].abs()
+    xl1 = (r0.abs() + r1.abs()) + r2.abs()
+    drop = (vdw[:, None, :] == 0.0) | (lhs >= r + coef * (xl1 + r))
+    return ~drop
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +239,111 @@ def path_sweep_plain(
     return ok, pos.to(torch.int32), cmin
 
 
-def _sweep_checks(name, vectors, chunks, coords, vdw):
+def _segment(vectors: torch.Tensor):
+    """Per ray (v0, v1, v2, 1/|v|^2 or 0, slack) as ``csrc/path_sweep.cu``'s
+    ``Segment`` computes them, each (B, P, 1)."""
+    v0, v1, v2 = (vectors[..., k, None] for k in range(3))
+    vv = v0 * v0 + v1 * v1 + v2 * v2
+    vl1 = (v0.abs() + v1.abs()) + v2.abs()
+    proj = vv > SWEEP_TINY_VV
+    inv_vv = torch.where(proj, 1.0 / torch.where(proj, vv, 1.0), 0.0)
+    margin = SWEEP_CULL_ULPS * _unit_roundoff(vectors.dtype)
+    slack = margin * vl1 + torch.where(proj, 0.0, vl1)
+    return v0, v1, v2, inv_vv, slack
+
+
+def path_sweep_bounds(
+    vectors: torch.Tensor, coords: torch.Tensor, vdw: torch.Tensor
+) -> torch.Tensor:
+    """(B, P, N): each atom's lower bound on its computed clearance at
+    every probe of the ray's segment [0, v], with the operations of
+    ``csrc/path_sweep.cu`` (whose header derives the margin)."""
+    v0, v1, v2, inv_vv, slack = _segment(vectors)
+    margin = SWEEP_CULL_ULPS * _unit_roundoff(vectors.dtype)
+    x0, x1, x2 = (coords[..., None, :, k] for k in range(3))  # (B, 1, N)
+    r = vdw[..., None, :]
+    t = torch.clamp((x0 * v0 + x1 * v1 + x2 * v2) * inv_vv, 0.0, 1.0)
+    p0 = x0 - t * v0
+    p1 = x1 - t * v1
+    p2 = x2 - t * v2
+    dist = torch.sqrt(p0 * p0 + p1 * p1 + p2 * p2)
+    scale = ((x0.abs() + x1.abs()) + x2.abs()) + r
+    return (dist - r) - (margin * scale + slack)
+
+
+def path_sweep_keep(
+    vectors: torch.Tensor,
+    chunks: torch.Tensor,
+    coords: torch.Tensor,
+    vdw: torch.Tensor,
+    max_steps: int,
+) -> torch.Tensor:
+    """(B, P, N) bool: the atoms ``path_sweep``'s kernel keeps for each
+    ray: LB_i <= max(U, 0), with U the clearance of the atom of least
+    bound (first on ties) at the valid step nearest its projection on
+    the ray, computed with the plain version's arithmetic."""
+    dtype = vectors.dtype
+    lb = path_sweep_bounds(vectors, coords, vdw)
+    lbm = torch.where(torch.isnan(lb), torch.inf, lb)
+    star = lbm.argmin(-1)  # (B, P), first minimum
+    atom = coords.gather(1, star[..., None].expand(-1, -1, 3))  # (B, P, 3)
+    radius = vdw.gather(1, star)
+    v0, v1, v2, inv_vv, _ = _segment(vectors)
+    a0, a1, a2 = (atom[..., k, None] for k in range(3))
+    t = torch.clamp((a0 * v0 + a1 * v1 + a2 * v2) * inv_vv, 0.0, 1.0)[..., 0]
+    chunksf = chunks.to(dtype)
+    n_steps = torch.clamp_max(chunks + 1, max_steps)
+    step = torch.minimum(torch.round(t * chunksf).to(torch.int32).clamp_min(0), n_steps - 1)
+    q = vectors * (step.to(dtype) / chunksf)[..., None]
+    u = torch.sqrt(sq_norm3(q - atom)) - radius
+    has = (lbm.amin(-1) < torch.inf) & (n_steps > 0)
+    bound = torch.where(has, torch.clamp_min(u, 0.0), torch.inf)
+    return ~(lb > bound[..., None])
+
+
+def path_sweep_origin_rays(
+    vectors: torch.Tensor, chunks: torch.Tensor, max_steps: int
+) -> torch.Tensor:
+    """(B, P) bool: the rays ``path_sweep``'s kernel answers from its
+    block's origin clearance, with no cull and no walk: zero vectors with
+    chunks >= 1 and at least one step (every probe is the origin)."""
+    steps = torch.clamp_max(chunks + 1, max_steps)
+    return (vectors == 0).all(-1) & (chunks >= 1) & (steps >= 1)
+
+
+#: path_sweep's warps per block (csrc/path_sweep.cu, PATH_SWEEP_THREADS),
+#: and the blocks of 256 threads an H100 SM holds at once (2,048 threads)
+SWEEP_WARPS = 8
+SWEEP_BLOCKS_PER_SM = 8
+
+
+def sweep_rays_per_warp(frames: int, rays: int, sms: int) -> int:
+    """Rays each warp of ``path_sweep`` walks, one after another: the
+    fewest of 1, 2 and 4 that fit the launch in one wave of blocks (one
+    molecule, a small batch: the launch is latency-bound, and a warp's
+    rays run one after another), else 4 (a batch that fills the card many
+    times over: a block's staging and origin clearance then serve 32
+    rays; one ray a warp read 24% slower on a 1,440-frame chunk, PERF.md).
+    Any value gives the same outputs."""
+    wave = SWEEP_BLOCKS_PER_SM * sms
+    for rays_per_warp in (1, 2):
+        if frames * -(-rays // (SWEEP_WARPS * rays_per_warp)) <= wave:
+            return rays_per_warp
+    return 4
+
+
+def path_sweep_smem_bytes(n: int, element_size: int) -> int:
+    """Shared memory of a ``path_sweep`` block: the frame's atoms as
+    (x, y, z, r) records, and for each of its 8 rays a kept-atom bit mask
+    and the atoms' bounds."""
+    return 4 * n * element_size + 8 * 4 * (-(-n // 32)) + 8 * n * element_size
+
+
+def _fine_smem_bytes(n: int, element_size: int) -> int:
+    return 4 * n * element_size
+
+
+def _sweep_checks(name, vectors, chunks, coords, vdw, smem_bytes):
     dtype = vectors.dtype
     device = _cuda.check_inputs(
         name, dtype, vectors=vectors, chunks=chunks, coords=coords, vdw=vdw
@@ -167,7 +359,7 @@ def _sweep_checks(name, vectors, chunks, coords, vdw):
     if chunks.dtype != torch.int32:
         msg = f"{name}: chunks must be int32, got {chunks.dtype}"
         raise TypeError(msg)
-    _cuda.check_smem(name, 4 * n * vectors.element_size())
+    _cuda.check_smem(name, smem_bytes(n, vectors.element_size()))
     ok = torch.empty((b, r), dtype=torch.bool, device=device)
     pos = torch.empty((b, r), dtype=torch.int32, device=device)
     cmin = torch.empty((b, r), dtype=dtype, device=device)
@@ -182,13 +374,19 @@ def path_sweep_cuda(
     max_steps: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`path_sweep_plain` through the CUDA kernel
-    (``csrc/path_sweep.cu``); same arithmetic, same tie rule."""
-    ok, pos, cmin = _sweep_checks("path_sweep", vectors, chunks, coords, vdw)
+    (``csrc/path_sweep.cu``): the same outputs bit for bit, from only the
+    atoms :func:`path_sweep_keep` keeps, with the same arithmetic and
+    tie rule; :func:`sweep_rays_per_warp` sets the launch."""
+    ok, pos, cmin = _sweep_checks(
+        "path_sweep", vectors, chunks, coords, vdw, path_sweep_smem_bytes
+    )
     if vectors.shape[0] > MAX_FRAMES:
         msg = f"path_sweep: {vectors.shape[0]} frames in one launch (at most {MAX_FRAMES})"
         raise ValueError(msg)
+    b, p = vectors.shape[:2]
     _cuda.load_extension().path_sweep(
-        vectors, chunks, coords, vdw, ok, pos, cmin, int(max_steps)
+        vectors, chunks, coords, vdw, ok, pos, cmin, int(max_steps),
+        sweep_rays_per_warp(b, p, _cuda.sm_count(vectors.device)),
     )
     _cuda.LAUNCHES["path_sweep"] += 1
     return ok, pos, cmin
@@ -261,7 +459,9 @@ def fine_path_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`fine_path_plain` through the CUDA kernel
     (``csrc/fine_path.cu``); same arithmetic, same first-minimum rule."""
-    ok, pos, cmin = _sweep_checks("fine_path", vectors, chunks, coords, vdw)
+    ok, pos, cmin = _sweep_checks(
+        "fine_path", vectors, chunks, coords, vdw, _fine_smem_bytes
+    )
     _cuda.load_extension().fine_path(
         vectors, chunks, coords, vdw, ok, pos, cmin, int(max_steps)
     )

@@ -94,6 +94,38 @@ def mean_knn_eps_scaled(
     return m + torch.sqrt(m)
 
 
+def _spiral_tile_order_np(n_points: int) -> np.ndarray:
+    """The golden spiral's points cut into compact 32-ray patches: bands
+    of z (the spiral's index order) about one patch's side high, each a
+    whole number of patches except the last, sorted by longitude within
+    the band.  Spiral point k has z = 1 - (2k + 1)/n and longitude
+    k times the golden angle."""
+    tile = ray_kernels.RAY_TILE
+    k = np.arange(n_points)
+    z = 1.0 - (2.0 * k + 1.0) / n_points
+    phi = np.mod(np.pi * (3.0 - np.sqrt(5.0)) * k, 2.0 * np.pi)
+    side = np.sqrt(4.0 * np.pi * tile / n_points)  # a square patch's side
+    order, start = [], 0
+    while start < n_points:
+        # a band's height in z is its arc height times rho at its middle
+        rho_top = np.sqrt(max(1.0 - z[start] ** 2, 0.0))
+        z_mid = z[start] - 0.5 * side * rho_top
+        rho = np.sqrt(max(1.0 - z_mid**2, 0.0))
+        count = tile * max(1, round(n_points * side * rho / 2.0 / tile))
+        band = k[start : start + count]
+        order.append(band[np.argsort(phi[band], kind="stable")])
+        start += count
+    return np.concatenate(order).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def spiral_tile_order(n_points: int, device: torch.device) -> torch.Tensor:
+    """(P,) int32 on ``device``: the order in which ``ray_exit``'s kernel
+    takes the spiral's rays, 32 to a tile (a permutation of range(P); it
+    groups the rays and changes no result)."""
+    return torch.as_tensor(_spiral_tile_order_np(n_points), device=device)
+
+
 def _ray_frame(
     points: torch.Tensor, mol: MolArrays
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -108,8 +140,9 @@ def preanalysis_open(points: torch.Tensor, mol: MolArrays) -> torch.Tensor:
     """True for rays with no blocking ('front') sphere intersection
     (reference ``vector_preanalysis``, utilities.py:1132-1161)."""
     unit, rel, origin = _ray_frame(points, mol)
+    order = spiral_tile_order(points.shape[-2], points.device)
     any_front, _ = ray_kernels.ray_exit(
-        unit, rel, mol.vdw, origin, want_exit=False
+        unit, rel, mol.vdw, origin, want_exit=False, order=order
     )
     return ~any_front
 
@@ -120,7 +153,10 @@ def reversed_exit_distance(
     """(has_front, farthest front exit distance) per ray, for the
     average diameter (reference: utilities.py:1556-1583)."""
     unit, rel, origin = _ray_frame(points, mol)
-    return ray_kernels.ray_exit(unit, rel, mol.vdw, origin, want_exit=True)
+    order = spiral_tile_order(points.shape[-2], points.device)
+    return ray_kernels.ray_exit(
+        unit, rel, mol.vdw, origin, want_exit=True, order=order
+    )
 
 
 def average_diameter(

@@ -8,7 +8,10 @@ neither JAX nor the test conftest's helpers, so on the card's machine
 
 Tolerances: the ray kernels round like their plain versions in float64
 (flags and steps equal, distances within 1e-9 Å; float32 within 1e-4 Å,
-with a few grazing rays allowed to flip); the optimiser kernels run
+with a few grazing rays allowed to flip); ``path_sweep`` equals its plain
+version bit for bit in both dtypes, and ``ray_exit`` equals, bit for bit,
+its own pair arithmetic over every atom (what the kernel computed before
+its cull), whatever order groups its rays; the optimiser kernels run
 float64 and stop where the plain drivers stop: x within 1e-6 Å and the
 same ``capped`` flag on every lane, or, on a flat ridge, objective
 values within 1e-9.
@@ -88,7 +91,7 @@ def test_ray_exit_kernel_matches_plain(cuda, dtype, want_exit):
     pts = rays.golden_spiral(700, radius)
     unit, rel, origin = rays._ray_frame(pts, mol)
     before = _cuda.LAUNCHES["ray_exit"]
-    hk, ek = ray_kernels.ray_exit(unit, rel, mol.vdw, origin, want_exit)
+    hk, ek = ray_kernels.ray_exit(unit, rel, mol.vdw, origin, want_exit, rays.spiral_tile_order(700, cuda))
     assert _cuda.LAUNCHES["ray_exit"] == before + 1
     hp, ep = ray_kernels.ray_exit_plain(unit, rel, mol.vdw, origin, want_exit)
     torch.cuda.synchronize()
@@ -116,8 +119,7 @@ def test_path_sweep_kernel_matches_plain(cuda, dtype):
     assert _cuda.LAUNCHES["path_sweep"] == before + 1
     ok_p, pos_p, c_p = ray_kernels.path_sweep_plain(vectors, chunks, mol.coords, mol.vdw, 16)
     assert torch.equal(ok_k, ok_p) and torch.equal(pos_k, pos_p)
-    tol = 1e-9 if dtype == torch.float64 else 1e-4
-    assert float((c_k - c_p).abs().max()) <= tol
+    assert torch.equal(c_k, c_p)  # bit for bit: the cull keeps every deciding atom
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -246,11 +248,14 @@ def test_nm_xy_kernel_matches_plain(cuda):
 
 def test_wrappers_raise_on_bad_inputs(cuda):
     x = torch.zeros((1, 10, 3), dtype=torch.float32, device=cuda)
-    with pytest.raises(TypeError):
-        ray_kernels.ray_exit_cuda(x, x.double(), x[..., 0], x[:, 0])
+    order = torch.arange(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ray_kernels.ray_exit_cuda(x, x.double(), x[..., 0], x[:, 0], True, order)
+    with pytest.raises(TypeError, match="int32"):
+        ray_kernels.ray_exit_cuda(x, x, x[..., 0].contiguous(), x[:, 0].contiguous(), True, order.long())
     strided = torch.zeros((1, 3, 10), dtype=torch.float32, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        ray_kernels.ray_exit_cuda(strided, x, x[..., 0].contiguous(), x[:, 0].contiguous())
+        ray_kernels.ray_exit_cuda(strided, x, x[..., 0].contiguous(), x[:, 0].contiguous(), True, order)
     coords = torch.zeros((2, 10, 3), dtype=torch.float64, device=cuda)
     vdw = torch.ones((2, 10), dtype=torch.float64, device=cuda)
     x3 = torch.zeros((2, 3), dtype=torch.float64, device=cuda)
@@ -495,3 +500,216 @@ def test_optimiser_kernels_equal_plain_on_real_window_lanes(cuda, monkeypatch, n
             want = nm_kernels.nm_xy_flat_plain(*args, **kwargs)
         torch.cuda.synchronize()
         assert _equal(got, want), (key, args[0].shape)
+
+
+# -- the culled ray kernels -------------------------------------------------
+
+
+def _exit_arithmetic(unit, rel, vdw, origin, want_exit):
+    """ray_exit's pair arithmetic over every atom, op by op in torch (one
+    rounding per operation, as the kernel's -fmad=false build): the
+    outputs of the kernel before its cone cull."""
+    u0, u1, u2 = (unit[..., :, None, k] for k in range(3))
+    x0, x1, x2 = (rel[..., None, :, k] for k in range(3))
+    r = vdw[..., None, :]
+    t_ca = u0 * x0 + u1 * x1 + u2 * x2
+    q0 = x0 - t_ca * u0
+    q1 = x1 - t_ca * u1
+    q2 = x2 - t_ca * u2
+    under = r * r - (q0 * q0 + q1 * q1 + q2 * q2)
+    o0, o1, o2 = (origin[:, None, k] for k in range(3))
+    ou = (o0 * unit[..., 0] + o1 * unit[..., 1] + o2 * unit[..., 2])[..., None]
+    oo = (o0 * o0 + o1 * o1 + o2 * o2)[..., None]
+    front = (under > 0.0) & (t_ca + ou > 0.0)
+    hit = front.any(-1)
+    if not want_exit:
+        return hit, torch.full_like(unit[..., 0], -1e30)
+    t1 = t_ca + torch.sqrt(torch.where(front, under, 0.0))
+    best = torch.where(front, t1 * (t1 + (ou + ou)) + oo, -1e30).amax(-1)
+    return hit, torch.where(hit, torch.sqrt(torch.clamp_min(best, 0.0)), -1e30)
+
+
+def _shells(b, n, seed, dtype, device, pad=8):
+    """(coords, vdw, rel, origin) of b hollow random shells of n atoms and
+    ``pad`` padded atoms (coords 1e6, rel 0, vdW 0)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(b, n, 3))
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
+    pts = pts * rng.uniform(5.0, 9.0, (b, 1, 1)) + rng.normal(scale=0.4, size=(b, n, 3))
+    coords = np.concatenate([pts, np.full((b, pad, 3), 1.0e6)], 1)
+    vdw = np.concatenate([rng.uniform(1.2, 1.9, (b, n)), np.zeros((b, pad))], 1)
+    origin = pts.mean(1)
+    rel = np.concatenate([pts - origin[:, None], np.zeros((b, pad, 3))], 1)
+
+    def f(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return f(coords), f(vdw), f(rel), f(origin)
+
+
+def _spiral_units(p, b, dtype, device):
+    pts = rays.golden_spiral(p, torch.ones(b, dtype=dtype, device=device))
+    return pts / torch.sqrt((pts * pts).sum(-1, keepdim=True))
+
+
+def _assert_exit_kernel_exact(unit, rel, vdw, origin, order):
+    for want in (True, False):
+        got = ray_kernels.ray_exit_cuda(unit, rel, vdw, origin, want, order)
+        want_out = _exit_arithmetic(unit, rel, vdw, origin, want)
+        torch.cuda.synchronize()
+        assert _equal(got, want_out), want
+
+
+def _assert_sweep_kernel_exact(vectors, chunks, coords, vdw, max_steps):
+    got = ray_kernels.path_sweep_cuda(vectors, chunks, coords, vdw, max_steps)
+    want = ray_kernels.path_sweep_plain(vectors, chunks, coords, vdw, max_steps)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ray_exit_kernel_same_outputs_in_any_order(cuda, dtype):
+    """The spiral's tile order, index order, reversed and random orders
+    give the same outputs bit for bit, equal to the pair arithmetic over
+    every atom, and within today's tolerances of the plain version."""
+    _, vdw, rel, origin = _shells(3, 140, 11, dtype, cuda)
+    unit = _spiral_units(333, 3, dtype, cuda)
+    orders = [
+        rays.spiral_tile_order(333, cuda),
+        torch.arange(333, dtype=torch.int32, device=cuda),
+        torch.arange(332, -1, -1, dtype=torch.int32, device=cuda),
+        torch.tensor(np.random.default_rng(3).permutation(333), dtype=torch.int32, device=cuda),
+    ]
+    outs = [ray_kernels.ray_exit_cuda(unit, rel, vdw, origin, True, o) for o in orders]
+    for out in outs[1:]:
+        assert _equal(out, outs[0])
+    for order in orders:
+        _assert_exit_kernel_exact(unit, rel, vdw, origin, order)
+    hp, ep = ray_kernels.ray_exit_plain(unit, rel, vdw, origin, True)
+    hk, ek = outs[0]
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        assert torch.equal(hk, hp)
+    assert int((hk != hp).sum()) <= 0.005 * hk.numel()
+    both = hk & hp
+    assert float((ek - ep)[both].abs().max()) <= (1e-9 if dtype == torch.float64 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ray_exit_kernel_exact_on_tangent_rays_and_padded_atoms(cuda, dtype):
+    """Atoms tangent to chosen spiral rays to rounding (and one part in
+    1e7 inside and outside), an atom around the origin, padded atoms."""
+    p = 400
+    unit = _spiral_units(p, 1, dtype, cuda)
+    rng = np.random.default_rng(2)
+    u64 = unit[0].double().cpu().numpy()
+    atoms, radii = [], []
+    for j, k in enumerate(rng.choice(p, 40, replace=False)):
+        w = np.cross(u64[k], rng.normal(size=3))
+        w /= np.linalg.norm(w)
+        r = rng.uniform(1.2, 1.8)
+        atoms.append(rng.uniform(-9.0, 9.0) * u64[k] + r * w)
+        radii.append(r * (1.0 + (j % 3 - 1) * 1e-7))
+    atoms.append([0.2, 0.1, -0.3])
+    radii.append(1.5)
+    rel = torch.tensor(np.concatenate([atoms, np.zeros((9, 3))])[None], dtype=dtype, device=cuda)
+    vdw = torch.tensor(np.concatenate([radii, np.zeros(9)])[None], dtype=dtype, device=cuda)
+    origin = torch.tensor([[0.4, -0.7, 0.2]], dtype=dtype, device=cuda)
+    _assert_exit_kernel_exact(unit, rel, vdw, origin, rays.spiral_tile_order(p, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [472, 1700])
+def test_ray_kernels_exact_on_large_molecules(cuda, dtype, n):
+    """N = 472 (REYMAL's padded size) and N = 1,700 (in float64
+    path_sweep's block needs more than 48 KB of dynamic shared memory for
+    its atom records and bounds)."""
+    coords, vdw, rel, origin = _shells(2, n - 8, 12, dtype, cuda)
+    assert ray_kernels.path_sweep_smem_bytes(n, 8) > 48 * 1024 or n < 1000
+    vectors = rays.golden_spiral(384, torch.tensor([11.0, 13.0], dtype=dtype, device=cuda))
+    _, chunks = rays._chunks(vectors, 0.8)
+    _assert_sweep_kernel_exact(vectors, chunks, coords, vdw, 24)
+    _assert_exit_kernel_exact(_spiral_units(947, 2, dtype, cuda), rel, vdw, origin, rays.spiral_tile_order(947, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [1, 33])
+def test_ray_kernels_exact_with_few_rays(cuda, dtype, p):
+    """P = 1 and P = 33: a lone ray, and a last tile of one ray."""
+    coords, vdw, rel, origin = _shells(2, 100, 13, dtype, cuda)
+    vectors = rays.golden_spiral(p, torch.tensor([10.0, 12.0], dtype=dtype, device=cuda))
+    _, chunks = rays._chunks(vectors, 1.0)
+    _assert_sweep_kernel_exact(vectors, chunks, coords, vdw, 16)
+    _assert_exit_kernel_exact(_spiral_units(p, 2, dtype, cuda), rel, vdw, origin, rays.spiral_tile_order(p, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ray_kernels_exact_on_1440_frames(cuda, dtype):
+    """B = 1,440 synthetic frames (a sweep chunk) in one launch each."""
+    coords, vdw, rel, origin = _shells(1440, 60, 14, dtype, cuda)
+    radius = torch.linspace(9.0, 12.0, 1440, dtype=dtype, device=cuda)
+    vectors = rays.golden_spiral(96, radius)
+    _, chunks = rays._chunks(vectors, 1.0)
+    _assert_sweep_kernel_exact(vectors, chunks, coords, vdw, 16)
+    _assert_exit_kernel_exact(_spiral_units(200, 1440, dtype, cuda), rel, vdw, origin, rays.spiral_tile_order(200, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_path_sweep_kernel_exact_on_adversarial_rays(cuda, dtype):
+    """Zero rays (chunks 1), max_steps below chunks + 1 and above 32 (the
+    kernel wraps its steps), a ray blocked by an atom on its segment
+    (U < 0), an atom around the origin, padded atoms, a sphere surface on
+    a probe to the ulp, and an equidistant cylinder where nothing is
+    culled."""
+    coords, vdw, _, _ = _shells(2, 60, 15, dtype, cuda, pad=4)
+    rng = np.random.default_rng(15)
+    vec = rng.normal(size=(2, 40, 3))
+    vec = vec / np.linalg.norm(vec, axis=-1, keepdims=True) * rng.uniform(2.0, 12.0, (2, 40, 1))
+    vec[:, :8] = 0.0
+    vectors = torch.tensor(vec, dtype=dtype, device=cuda)
+    _, chunks = rays._chunks(vectors, 0.25)
+    chunks[:, :8] = 1
+    coords[1, 0] = vectors[1, 10] * 0.5
+    coords[1, 1] = torch.tensor([0.3, -0.2, 0.1], dtype=dtype, device=cuda)
+    vdw[1, 1] = 1.0
+    for max_steps in (5, 16, 49):
+        _assert_sweep_kernel_exact(vectors, chunks, coords, vdw, max_steps)
+    # a surface through the probe at x = 1.5 of the ray (4, 0, 0), chunks 8
+    d = torch.tensor(2.25, dtype=dtype, device=cuda)
+    ring = np.arange(8) * np.pi / 4
+    cyl = [[0.5 * l, 3.0 * np.cos(a), 3.0 * np.sin(a)] for l in range(9) for a in ring]
+    for r in (d, torch.nextafter(d, d - 1), torch.nextafter(d, d + 1)):
+        co = torch.tensor([[[1.5, 2.25, 0.0]] + cyl], dtype=dtype, device=cuda)
+        vd = torch.full(co.shape[:2], 1.25, dtype=dtype, device=cuda)
+        vd[0, 0] = r
+        v = torch.tensor([[[4.0, 0.0, 0.0]]], dtype=dtype, device=cuda)
+        ch = torch.full((1, 1), 8, dtype=torch.int32, device=cuda)
+        _assert_sweep_kernel_exact(v, ch, co, vd, 12)
+        _assert_sweep_kernel_exact(v, ch, co[:, 1:].contiguous(), vd[:, 1:].contiguous(), 12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_path_sweep_kernel_same_outputs_at_any_rays_per_warp(cuda, dtype, monkeypatch):
+    """1, 2, 4 and 8 rays a warp (grids of 48 down to 6 blocks a frame)
+    give the plain version's outputs bit for bit, zero rays included."""
+    coords, vdw, _, _ = _shells(3, 160, 16, dtype, cuda)
+    vectors = rays.golden_spiral(384, torch.tensor([11.0, 9.5, 12.5], dtype=dtype, device=cuda))
+    vectors[:, 265:] = 0.0
+    _, chunks = rays._chunks(vectors, 1.0)
+    for rpw in (1, 2, 4, 8):
+        monkeypatch.setattr(ray_kernels, "sweep_rays_per_warp", lambda f, r, s, k=rpw: k)
+        _assert_sweep_kernel_exact(vectors, chunks, coords, vdw, 16)
+
+
+def test_ray_kernel_launches_per_pipeline_call(cuda):
+    """One pipeline call launches ray_exit twice (pre-analysis, average
+    diameter) and path_sweep once, for 1 frame as for 5."""
+    from pywindow_torch.parallel import batch
+
+    elements, coords = _pudxes()
+    for n_frames in (1, 5):
+        _cuda.LAUNCHES.clear()
+        batch.collect_batch(
+            batch.dispatch_batch([(elements, coords)] * n_frames, reference_max_diameter=22.179369990077188)
+        )
+        assert _cuda.LAUNCHES["ray_exit"] == 2 and _cuda.LAUNCHES["path_sweep"] == 1

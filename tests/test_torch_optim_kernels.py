@@ -150,9 +150,12 @@ def _fake_kernels(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a plain FD optimiser ran on the kernel path")
 
+    def ray_exit_plain(unit, rel, vdw, origin, want_exit, order):
+        return ray_kernels.ray_exit_plain(unit, rel, vdw, origin, want_exit)
+
     monkeypatch.setattr(_cuda, "device_type", lambda name, tensor: "cuda")
     for module, attr, key, plain in (
-        (ray_kernels, "ray_exit_cuda", "ray_exit", ray_kernels.ray_exit_plain),
+        (ray_kernels, "ray_exit_cuda", "ray_exit", ray_exit_plain),
         (ray_kernels, "path_sweep_cuda", "path_sweep", ray_kernels.path_sweep_plain),
         (ray_kernels, "fine_path_cuda", "fine_path", ray_kernels.fine_path_plain),
         (lbfgsb_kernels, "lbfgsb_stable_flat_cuda", "lbfgsb_stable",

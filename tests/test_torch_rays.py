@@ -133,16 +133,17 @@ def test_wrappers_route_by_device_and_never_fall_back():
     jm, tm = random_mol(30, seed=1, pad_to=32)
     pts = trays.golden_spiral(50, torch.tensor(9.0, dtype=torch.float64))
     unit, rel, origin = trays._ray_frame(pts, tm)
+    order = trays.spiral_tile_order(50, torch.device("cpu"))
     before = dict(_cuda.LAUNCHES)
-    a = ray_kernels.ray_exit(unit, rel, tm.vdw, origin)
+    a = ray_kernels.ray_exit(unit, rel, tm.vdw, origin, True, order)
     b = ray_kernels.ray_exit_plain(unit, rel, tm.vdw, origin)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert dict(_cuda.LAUNCHES) == before  # the plain path launches nothing
     with pytest.raises(ValueError, match="device"):
-        ray_kernels.ray_exit(unit.to("meta"), rel, tm.vdw, origin)
+        ray_kernels.ray_exit(unit.to("meta"), rel, tm.vdw, origin, True, order)
     # the kernel wrappers refuse CPU tensors instead of running elsewhere
     with pytest.raises(ValueError, match="CUDA"):
-        ray_kernels.ray_exit_cuda(unit, rel, tm.vdw, origin)
+        ray_kernels.ray_exit_cuda(unit, rel, tm.vdw, origin, True, order)
     _, chunks = trays._chunks(pts, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         ray_kernels.path_sweep_cuda(pts, chunks, tm.coords, tm.vdw, 16)
