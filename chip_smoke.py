@@ -16,24 +16,32 @@ result line):
    whose neighbouring lanes hold different frames, and the periodic
    trajectory's first chunk, 48 frames of 8 cages; the plain versions
    take a chunk in slices of lanes), in float64 and, for the ray kernels
-   and DBSCAN, float32; warm timings and each kernel's bound (the least
-   time the card could take).  Both ``lbfgsb_stable`` calls of a label
-   are timed (d = 3 pore, d = 1 window z), and for each optimiser call
-   the active-lane share, the slowest lane alone beside the whole call,
-   the float64 instruction floor, the bound beside the one over every
-   lane and atom and, for ``nm_xy``, the atoms its grid cull keeps
-   (``nm_kernels.grid_keep``).  Both ``ray_exit`` calls of a label are
-   timed (the full average-diameter call, the slim pre-analysis), with
-   each float32 call's flips printed; ``path_sweep`` is held bit for
-   bit in both dtypes; for both ray kernels the atoms their exact culls
-   keep (``ray_kernels.ray_exit_keep``, ``path_sweep_keep``), the bound
-   under the cull beside the one over every pair, and the FP32
-   instruction floor.  ``clearance_min``, which no pipeline
-   stage calls, is held on three input sets in both dtypes: the shapes
-   of tests/test_pallas.py with the padding case, Q = 65,536 probes
-   against N = 4,096 atoms, and a 50^3 clearance grid over the rebuilt
-   periodic cell (1,344 atoms), with the time of ``torch.cdist`` +
-   ``amin`` beside it;
+   and DBSCAN, float32.  Each timed call is read twice: the warm median
+   of one wrapper call between CUDA events (on an idle card a small
+   call's reading is the wrapper's host time) and its device time, the
+   call captured 20 times in one CUDA graph and replayed
+   (:func:`device_ms`); beside them the plain version's time and each
+   kernel's bound (the least time the card could take).  Both
+   ``lbfgsb_stable`` calls of a label are timed (d = 3 pore, d = 1 window
+   z), and for each optimiser call the active-lane share, the slowest
+   lane alone beside the whole call, the float64 instruction floor, the
+   bound beside the one over every lane and atom and, for ``nm_xy``, the
+   atoms its grid cull keeps (``nm_kernels.grid_keep``).  Both
+   ``ray_exit`` calls of a label are timed (the full average-diameter
+   call, the slim pre-analysis), with each float32 call's flips printed;
+   ``path_sweep``, ``fine_path`` and ``dbscan`` are held bit for bit in
+   both dtypes (``fine_path`` with the pipeline's active slots); for the
+   three ray kernels the atoms their exact culls keep
+   (``ray_kernels.ray_exit_keep``, ``path_sweep_keep``), the bound under
+   the cull beside the one over every pair, and the FP32 instruction
+   floor; for ``dbscan`` the valid points a frame and the bound over
+   the work its exact tile rule leaves (``dbscan_work``) beside the ones
+   over all unordered valid pairs and over all K^2.  ``clearance_min``,
+   which no pipeline stage calls, is held on three input sets in both
+   dtypes: the shapes of tests/test_pallas.py with the padding case, Q =
+   65,536 probes against N = 4,096 atoms, and a 50^3 clearance grid over
+   the rebuilt periodic cell (1,344 atoms), with the time of
+   ``torch.cdist`` + ``amin`` beside it;
 4. the 7-system golden gate through
    ``MolecularSystem.load_file(...).system_to_molecule().full_analysis()``
    (the card is the default device; float32 pipeline, float64 optimiser
@@ -197,13 +205,19 @@ FP32_INSTR = 132 * 128 * 1.98e9
 #: a reciprocal square-root estimate and its Newton fix-up (~8)
 SQRT_F32_INSTR = 8
 #: the ray kernels' operations: ray_exit per (ray, atom) pair, per (tile,
-#: atom) cone test and per ray of cone set-up; path_sweep per (ray, atom)
-#: segment bound and per (probe, atom) clearance
+#: atom) cone test and per ray of cone set-up; path_sweep and fine_path
+#: per (ray, atom) segment bound and per (probe, atom) clearance
 RAY_PAIR_OPS = 21
 CONE_ATOM_OPS = 35
 CONE_RAY_OPS = 30
 SEGMENT_ATOM_OPS = 30
 PROBE_OPS = 11
+#: dbscan's operations per pair test: three differences, three squares,
+#: two sums and the square root (the compare not counted); per tile-pair
+#: box test: two differences and two maxima an axis, three squares, two
+#: sums and the square root
+DBSCAN_PAIR_OPS = 9
+DBSCAN_BOX_OPS = 18
 
 
 def structure(name: str) -> pathlib.Path:
@@ -404,6 +418,41 @@ def time_ms(fn) -> float:
     return float(np.median(times))
 
 
+#: calls captured in one CUDA graph for a device time
+GRAPH_CALLS = 20
+
+
+def device_ms(fn) -> float:
+    """ms a call of ``fn`` keeps the card busy: GRAPH_CALLS calls captured
+    in one CUDA graph, the median of 5 warm replays over the calls (the
+    kernels back to back, no host in between).  A wrapper that syncs with
+    the host cannot be captured and raises here."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_CALLS)
+    return sorted(times)[2]
+
+
 #: per kernel: the argument whose leading axis is the lane (frame) axis,
 #: and how many lanes one plain call takes (the plain versions hold
 #: (lanes, rays, steps or atoms, ...) tensors, too large for a whole
@@ -478,30 +527,27 @@ def compare_ray_exit(label, args, kwargs, dtype):
     return err
 
 
-def _compare_sweep(name, kernel, plain, args, dtype, exact=False):
-    """ok and pos equal; cmin within 1e-9 Å (float64) or 1e-4 Å (float32),
-    or, with ``exact``, equal to the bit."""
-    vectors, chunks, coords, vdw, max_steps = _as(args, dtype)
-    ok_k, pos_k, c_k = kernel(vectors, chunks, coords, vdw, max_steps)
-    ok_p, pos_p, c_p = plain_call(name, plain, vectors, chunks, coords, vdw, max_steps)
+def _compare_sweep(name, kernel, plain, args, dtype):
+    """ok, pos and cmin equal to the bit: each kernel's cull keeps every
+    atom that decides an output, and the kept atoms' clearances round
+    like the plain version's (``fine_path``'s inactive slots hold the same
+    placeholders on both sides)."""
+    vectors, chunks, coords, vdw, max_steps, *active = _as(args, dtype)
+    ok_k, pos_k, c_k = kernel(vectors, chunks, coords, vdw, max_steps, *active)
+    ok_p, pos_p, c_p = plain_call(name, plain, vectors, chunks, coords, vdw, max_steps, *active)
     torch.cuda.synchronize()
     check(torch.equal(ok_k, ok_p), f"{name} {dtype}: ok differs")
     check(torch.equal(pos_k, pos_p), f"{name} {dtype}: argmin step differs")
     err = float((c_k - c_p).abs().max())
-    tol = 0.0 if exact else (1e-9 if dtype == torch.float64 else 1e-4)
-    check(err <= tol, f"{name} {dtype}: cmin differs by {err}")
+    check(torch.equal(c_k, c_p), f"{name} {dtype}: cmin differs by {err}")
     return err
 
 
 def compare_path_sweep(label, args, kwargs, dtype):
-    """Bit for bit in both dtypes: the kernel's cull keeps every atom that
-    decides an output, and the kept atoms' clearances round like the
-    plain version's."""
     from pywindow_torch.ops import ray_kernels
 
     return _compare_sweep(
-        "path_sweep", ray_kernels.path_sweep_cuda, ray_kernels.path_sweep_plain, args, dtype,
-        exact=True,
+        "path_sweep", ray_kernels.path_sweep_cuda, ray_kernels.path_sweep_plain, args, dtype
     )
 
 
@@ -591,7 +637,7 @@ COMPARE = {
 }
 
 
-def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
+def bound(key, args, kwargs, out, every_lane=False, ops=None) -> tuple[float, str]:
     """The least time the card could take for one call: the larger of the
     bytes the function must move (inputs read once, outputs written once)
     over the HBM rate and the operations these inputs need over the peak
@@ -602,10 +648,17 @@ def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
     evaluation per iteration) or from the grid size.  An optimiser's
     inactive lanes read their flag and write their outputs, nothing
     else, and ``nm_xy``'s grid counts the atoms its exact cull keeps;
-    ``ray_exit`` and ``path_sweep`` count their cull pass and the atoms
-    it keeps (:func:`ray_work`).  ``every_lane`` counts every lane and
-    atom (every pair of the ray kernels) instead, the count that rows
-    measured before the flag and the culls existed used."""
+    the three ray walks count their cull pass and the atoms it keeps
+    (:func:`ray_work`; ``fine_path`` reads only its active slots and the
+    frames that hold one); ``dbscan`` reads the valid points'
+    coordinates and counts a box test for each pair of 32-point tiles
+    and the unordered pairs, self included, of the tile pairs its exact
+    rule does not skip (:func:`dbscan_work`: the kernel tests each pair
+    once).  ``every_lane`` counts every lane and
+    atom (every pair of the ray kernels, every (slot, step, atom) of
+    ``fine_path``, all K^2 ordered pairs of ``dbscan``) instead, the count
+    that rows measured before the flags and the culls existed used.
+    ``ops`` replaces the operation count (the same bytes)."""
     t = [a for a in args if torch.is_tensor(a)]
     dtype = t[0].dtype
     active = None if every_lane else kwargs.get("active")
@@ -618,30 +671,83 @@ def bound(key, args, kwargs, out, every_lane=False) -> tuple[float, str]:
         in_bytes += active.numel() * active.element_size()
     outs = [o for o in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(o)]
     out_bytes = sum(o.numel() * o.element_size() for o in outs)
-    if key in ("ray_exit", "path_sweep"):
-        ops = ray_work(key, args, every_lane)[0]
-    elif key == "fine_path":
-        vectors, chunks, coords, _, max_steps = args
-        steps = torch.clamp_max(chunks.to(torch.int64) + 1, int(max_steps))
-        ops = 11 * int(steps.sum()) * coords.shape[1]
-    elif key == "dbscan":
-        b, k, _ = args[0].shape
-        ops = 9 * b * k * k
-    elif key in ("lbfgsb_stable", "nm_xy"):
-        ops = optimiser_work(key, args, kwargs, out, every_lane)[0]
-    elif key == "clearance_min":
-        ops = 11 * args[0].shape[0] * args[1].shape[0]
-    else:
-        raise KeyError(key)
+    if key == "fine_path" and not every_lane:
+        vectors, chunks, coords, vdw = args[:4]
+        live = fine_live(args)
+        frames = live.any(-1)
+        in_bytes = (
+            int(live.sum()) * (3 * vectors.element_size() + chunks.element_size())
+            + int(frames.sum()) * (coords[0].numel() + vdw[0].numel()) * coords.element_size()
+            + (args[5].numel() if len(args) > 5 and args[5] is not None else 0)
+        )
+    if key == "dbscan" and not every_lane:
+        points, valid = args[:2]
+        in_bytes += (int(valid.sum()) - valid.numel()) * 3 * points.element_size()
+    if ops is None:
+        ops = operations(key, args, kwargs, out, every_lane)
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     t_ops = ops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def operations(key, args, kwargs, out, every_lane) -> int:
+    """The operations of one call that :func:`bound` counts."""
+    if key in ("ray_exit", "path_sweep", "fine_path"):
+        return ray_work(key, args, every_lane)[0]
+    if key == "dbscan":
+        b, k, _ = args[0].shape
+        boxes, pairs = (0, b * k * k) if every_lane else dbscan_work(args)
+        return DBSCAN_BOX_OPS * boxes + DBSCAN_PAIR_OPS * pairs
+    if key in ("lbfgsb_stable", "nm_xy"):
+        return optimiser_work(key, args, kwargs, out, every_lane)[0]
+    if key == "clearance_min":
+        return 11 * args[0].shape[0] * args[1].shape[0]
+    raise KeyError(key)
+
+
+def dbscan_pairs(args) -> torch.Tensor:
+    """(B,) the unordered pairs of each frame's valid points, self
+    included: n (n + 1) / 2 for n valid points."""
+    n = args[1].to(torch.int64).sum(-1)
+    return n * (n + 1) // 2
+
+
+def dbscan_work(args) -> tuple[int, int]:
+    """(box tests, pair tests) that ``dbscan``'s exact rule needs on a
+    call: per frame, one box test for each pair of 32-point tiles of the
+    compacted valid points (r <= c), and the unordered pairs, self
+    included, of the tile pairs that ``cluster_kernels.dbscan_far_tiles``
+    does not skip."""
+    from pywindow_torch.ops import cluster_kernels
+
+    points, valid, eps = (a.cpu() for a in args[:3])
+    boxes = pairs = 0
+    for f in range(points.shape[0]):
+        pts = points[f][valid[f]]
+        n = pts.shape[0]
+        if n == 0:
+            continue
+        tiles = -(-n // 32)
+        size = torch.full((tiles,), 32, dtype=torch.int64)
+        size[-1] = n - 32 * (tiles - 1)
+        near = ~cluster_kernels.dbscan_far_tiles(pts, eps[f])
+        boxes += tiles * (tiles + 1) // 2
+        pairs += int(((size[:, None] * size[None, :]) * near).triu(1).sum())
+        pairs += int((size * (size + 1) // 2).sum())
+    return boxes, pairs
+
+
+def fine_live(args) -> torch.Tensor:
+    """(B, W) bool: the slots ``fine_path`` walks (``active``, or all)."""
+    active = args[5] if len(args) > 5 else None
+    return torch.ones(args[1].shape, dtype=torch.bool, device=args[1].device) if active is None else active
+
+
 def cull_kept(key, args) -> torch.Tensor:
     """The atoms the ray kernels' exact culls keep: (B, tiles) for
     ``ray_exit`` (``ray_kernels.ray_exit_keep``), (B, P) for
-    ``path_sweep`` (``path_sweep_keep``), in slices of 128 frames."""
+    ``path_sweep`` and (B, W) for ``fine_path`` (``path_sweep_keep``,
+    the rule both walks share), in slices of 128 frames."""
     from pywindow_torch.ops import ray_kernels
 
     b = args[0].shape[0]
@@ -655,7 +761,7 @@ def cull_kept(key, args) -> torch.Tensor:
             unit, rel, vdw, _, _, order = part
             kept.append(ray_kernels.ray_exit_keep(unit, rel, vdw, order).sum(-1))
         else:
-            kept.append(ray_kernels.path_sweep_keep(*part).sum(-1))
+            kept.append(ray_kernels.path_sweep_keep(*part[:5]).sum(-1))
     return torch.cat(kept)
 
 
@@ -667,8 +773,9 @@ def ray_work(key, args, every_lane=False) -> tuple[int, int]:
     frame that has a zero ray (``ray_kernels.path_sweep_origin_rays``:
     the kernel answers those rays from it, with no cull and no walk), and
     for every other ray the segment bound of each atom and the kept atoms
-    at every valid probe.  ``every_lane``: every (ray, atom) pair or
-    (probe, atom) clearance, with no cull."""
+    at every valid probe; ``fine_path`` the same over its active slots,
+    with no origin rays.  ``every_lane``: every (ray, atom) pair or
+    (probe, atom) clearance, with no cull and every slot."""
     if key == "ray_exit":
         unit, rel = args[0], args[1]
         b, p, _ = unit.shape
@@ -682,8 +789,7 @@ def ray_work(key, args, every_lane=False) -> tuple[int, int]:
         pairs = int((kept * rays).sum())
         ops = CONE_ATOM_OPS * b * tiles * n + CONE_RAY_OPS * b * p + RAY_PAIR_OPS * pairs
         return ops, b * tiles * n + 2 * b * p
-    vectors, chunks, coords, _, max_steps = args
-    b, p, _ = vectors.shape
+    vectors, chunks, coords, _, max_steps = args[:5]
     n = coords.shape[1]
     steps = torch.clamp_max(chunks.to(torch.int64) + 1, int(max_steps))
     if every_lane:
@@ -691,10 +797,15 @@ def ray_work(key, args, every_lane=False) -> tuple[int, int]:
         return PROBE_OPS * probes, probes
     from pywindow_torch.ops import ray_kernels
 
-    at_origin = ray_kernels.path_sweep_origin_rays(vectors, chunks, int(max_steps))
-    walked = int((~at_origin).sum())
-    origin_probes = int(at_origin.any(-1).sum()) * n
-    evals = int((steps * cull_kept(key, args).to(torch.int64) * ~at_origin).sum())
+    if key == "fine_path":
+        walked_rays = fine_live(args)
+        origin_probes = 0
+    else:
+        at_origin = ray_kernels.path_sweep_origin_rays(vectors, chunks, int(max_steps))
+        walked_rays = ~at_origin
+        origin_probes = int(at_origin.any(-1).sum()) * n
+    walked = int(walked_rays.sum())
+    evals = int((steps * cull_kept(key, args).to(torch.int64) * walked_rays).sum())
     ops = PROBE_OPS * origin_probes + SEGMENT_ATOM_OPS * walked * n + PROBE_OPS * evals
     return ops, origin_probes + walked * n + evals
 
@@ -711,8 +822,9 @@ def ray_rows(key, label, args) -> None:
     """The ray kernels' extra readings of a timed call: the atoms the
     cull keeps (per tile of 32 rays for ``ray_exit``; for ``path_sweep``
     per ray it walks, beside the zero rays it answers from the origin
-    clearance), the bound under the cull beside the one over every pair,
-    and the FP32 instruction floor."""
+    clearance; for ``fine_path`` per active slot, beside the slots it
+    skips), the bound under the cull beside the one over every pair, and
+    the FP32 instruction floor."""
     kept = cull_kept(key, args).to(torch.float64)
     if key == "ray_exit":
         n, what = args[1].shape[1], "tile of 32 rays"
@@ -724,23 +836,49 @@ def ray_rows(key, label, args) -> None:
         from pywindow_torch.ops import ray_kernels
 
         n = args[2].shape[1]
-        at_origin = ray_kernels.path_sweep_origin_rays(args[0], args[1], int(args[4]))
-        walked = kept[~at_origin]
+        if key == "fine_path":
+            walked_rays = fine_live(args)
+            skipped = f"{int((~walked_rays).sum())} of {walked_rays.numel()} slots are inactive"
+        else:
+            at_origin = ray_kernels.path_sweep_origin_rays(args[0], args[1], int(args[4]))
+            walked_rays = ~at_origin
+            skipped = (
+                f"{int(at_origin.sum())} of {at_origin.numel()} rays are zero rays "
+                "answered from the origin clearance"
+            )
+        walked = kept[walked_rays]
         culled = (
             f"the cull keeps {float(walked.mean()):.2f} atoms a ray on average, "
             f"{int(walked.max())} at most, of {n}, on the {walked.numel()} rays it walks"
             if walked.numel() else "no ray is walked"
         )
-        print(
-            f"    {key} {label}: {int(at_origin.sum())} of {at_origin.numel()} rays are zero rays "
-            f"answered from the origin clearance; {culled}"
-        )
+        print(f"    {key} {label}: {skipped}; {culled}")
     cull_ops, all_ops = ray_work(key, args)[0], ray_work(key, args, every_lane=True)[0]
     print(
         f"    {key} {label}: bound {bound(key, args, {}, ())[0]:.4e} ms over the work the cull "
         f"leaves ({cull_ops:.4e} operations), {bound(key, args, {}, (), every_lane=True)[0]:.4e} ms "
         f"over every pair ({all_ops:.4e}); fp32 instruction floor {fp32_floor(key, args):.4e} ms "
         f"({fp32_floor(key, args, every_lane=True):.4e} ms over every pair)"
+    )
+
+
+def dbscan_rows(label, args, out) -> None:
+    """``dbscan``'s extra readings of a timed call: the valid points a
+    frame, and the bound over the work of its exact tile rule beside the
+    ones over all unordered valid pairs (the same bytes) and over all K^2
+    ordered pairs."""
+    n = args[1].to(torch.int64).sum(-1).to(torch.float64)
+    k = args[1].shape[1]
+    boxes, pairs = dbscan_work(args)
+    every = int(dbscan_pairs(args).sum())
+    ms, _ = bound("dbscan", args, {}, out)
+    all_pairs_ms, _ = bound("dbscan", args, {}, out, ops=DBSCAN_PAIR_OPS * every)
+    print(
+        f"    dbscan {label}: {float(n.mean()):.1f} valid points a frame on average "
+        f"({int(n.min())}-{int(n.max())}) of K = {k}; bound {ms:.4e} ms over {boxes} tile-pair box "
+        f"tests and the {pairs} pairs of the near tile pairs (the tile rule skips "
+        f"{every - pairs} of {every} unordered pairs, self included; {all_pairs_ms:.4e} ms over "
+        f"all of them), {bound('dbscan', args, {}, out, every_lane=True)[0]:.4e} ms over all K^2 pairs"
     )
 
 
@@ -889,17 +1027,19 @@ def phase_kernels() -> dict[str, dict]:
         rows = []
         for label, args, kwargs in timed:
             ms = time_ms(lambda a=args, k=kwargs: kernel_fn(*a, **k))
+            dev_ms = device_ms(lambda a=args, k=kwargs: kernel_fn(*a, **k))
             plain_ms = time_ms(lambda a=args, k=kwargs: plain_call(key, plain_fn, *a, **k))
             library_ms = time_ms(lambda a=args: cdist_amin(*a)) if key == "clearance_min" else None
             out = kernel_fn(*args, **kwargs)
             torch.cuda.synchronize()
             bound_ms, bound_by = bound(key, args, kwargs, out)
             shape = tuple(next(a for a in args if torch.is_tensor(a)).shape)
-            rows.append((ms, plain_ms, bound_ms, bound_by, library_ms))
+            rows.append((ms, dev_ms, plain_ms, bound_ms, bound_by, library_ms))
             library = "" if library_ms is None else f", cdist+amin {library_ms:.4f} ms"
             print(
-                f"  {key} {label} {shape} {args[0].dtype}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}){library}"
+                f"  {key} {label} {shape} {args[0].dtype}: kernel {ms:.4f} ms (events), "
+                f"device {dev_ms:.4f} ms (CUDA graph), plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.5f} ms ({bound_by}){library}"
             )
             if key == "lbfgsb_stable":
                 nit = out[2].to(torch.int64)
@@ -909,15 +1049,17 @@ def phase_kernels() -> dict[str, dict]:
                 )
             if key in ("lbfgsb_stable", "nm_xy"):
                 optimiser_rows(key, kernel_fn, label, args, kwargs, out, ms)
-            if key in ("ray_exit", "path_sweep"):
+            if key in ("ray_exit", "path_sweep", "fine_path"):
                 ray_rows(key, label, args)
+            if key == "dbscan":
+                dbscan_rows(label, args, out)
         print(
             f"kernel {key}: {len(calls)} calls checked, "
             f"max abs err {worst:.3e} ({dtypes[-1]})"
         )
-        ms, plain_ms, bound_ms, bound_by, library_ms = rows[0]
+        ms, dev_ms, plain_ms, bound_ms, bound_by, library_ms = rows[0]
         record[key] = {
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
     return record
@@ -1524,6 +1666,7 @@ def main() -> None:
             "launches": launches(key),
             "max_abs_err": record[key]["max_abs_err"],
             "ms": record[key]["ms"],
+            "device_ms": record[key]["device_ms"],
             "plain_ms": record[key]["plain_ms"],
             "bound_ms": record[key]["bound_ms"],
             "bound_by": record[key]["bound_by"],

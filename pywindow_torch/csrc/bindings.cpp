@@ -49,6 +49,10 @@ void ray_exit(const at::Tensor& unit, const at::Tensor& rel,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+const uint8_t* optional_bytes(const c10::optional<at::Tensor>& t) {
+  return t.has_value() ? static_cast<const uint8_t*>(t->data_ptr()) : nullptr;
+}
+
 // path_sweep and fine_path share one signature: vectors (B,R,3),
 // chunks (B,R), coords (B,N,3), vdw (B,N) -> ok, pos, cmin (B,R)
 template <typename T, typename Fn>
@@ -84,48 +88,53 @@ void path_sweep(const at::Tensor& vectors, const at::Tensor& chunks,
 }
 
 void fine_path(const at::Tensor& vectors, const at::Tensor& chunks,
-               const at::Tensor& coords, const at::Tensor& vdw, at::Tensor ok,
+               const at::Tensor& coords, const at::Tensor& vdw,
+               const c10::optional<at::Tensor>& active, at::Tensor ok,
                at::Tensor pos, at::Tensor cmin, int64_t max_steps) {
   const c10::cuda::CUDAGuard guard(vectors.device());
+  const uint8_t* act = optional_bytes(active);
+  auto launch = [act](auto vec, auto ch, auto co, auto vd, auto ok_,
+                      auto pos_, auto cmin_, int b, int w, int n, int steps,
+                      void* stream) {
+    pw::fine_path(vec, ch, co, vd, act, ok_, pos_, cmin_, b, w, n, steps,
+                  stream);
+  };
   if (vectors.scalar_type() == at::kDouble) {
-    sweep_t<double>(
-        [](auto... a) { pw::fine_path(a...); }, vectors, chunks, coords, vdw,
-        ok, pos, cmin, max_steps);
+    sweep_t<double>(launch, vectors, chunks, coords, vdw, ok, pos, cmin,
+                    max_steps);
   } else {
-    sweep_t<float>(
-        [](auto... a) { pw::fine_path(a...); }, vectors, chunks, coords, vdw,
-        ok, pos, cmin, max_steps);
+    sweep_t<float>(launch, vectors, chunks, coords, vdw, ok, pos, cmin,
+                   max_steps);
   }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 template <typename T>
 void dbscan_t(const at::Tensor& points, const at::Tensor& valid,
-              const at::Tensor& eps, at::Tensor& adj, at::Tensor& scratch,
-              at::Tensor& labels, int64_t min_samples, int64_t max_clusters) {
+              const at::Tensor& eps, at::Tensor& labels, int64_t min_samples,
+              int64_t max_clusters, int64_t threads, bool stored,
+              uint8_t* scratch) {
   pw::dbscan(points.data_ptr<T>(), static_cast<const uint8_t*>(valid.data_ptr()),
-             eps.data_ptr<T>(), adj.data_ptr<int32_t>(),
-             scratch.data_ptr<int32_t>(), labels.data_ptr<int32_t>(),
-             dim(points, 0), dim(points, 1), static_cast<int>(min_samples),
-             static_cast<int>(max_clusters), current_stream(points));
+             eps.data_ptr<T>(), labels.data_ptr<int32_t>(), dim(points, 0),
+             dim(points, 1), static_cast<int>(min_samples),
+             static_cast<int>(max_clusters), static_cast<int>(threads), stored,
+             scratch, current_stream(points));
 }
 
 void dbscan(const at::Tensor& points, const at::Tensor& valid,
-            const at::Tensor& eps, at::Tensor adj, at::Tensor scratch,
-            at::Tensor labels, int64_t min_samples, int64_t max_clusters) {
+            const at::Tensor& eps, at::Tensor labels, int64_t min_samples,
+            int64_t max_clusters, int64_t threads, bool stored,
+            c10::optional<at::Tensor> scratch) {
   const c10::cuda::CUDAGuard guard(points.device());
+  uint8_t* frames = scratch.has_value() ? bytes(*scratch) : nullptr;
   if (points.scalar_type() == at::kDouble) {
-    dbscan_t<double>(points, valid, eps, adj, scratch, labels, min_samples,
-                     max_clusters);
+    dbscan_t<double>(points, valid, eps, labels, min_samples, max_clusters,
+                     threads, stored, frames);
   } else {
-    dbscan_t<float>(points, valid, eps, adj, scratch, labels, min_samples,
-                    max_clusters);
+    dbscan_t<float>(points, valid, eps, labels, min_samples, max_clusters,
+                    threads, stored, frames);
   }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-const uint8_t* optional_bytes(const c10::optional<at::Tensor>& t) {
-  return t.has_value() ? static_cast<const uint8_t*>(t->data_ptr()) : nullptr;
 }
 
 void lbfgsb_stable(const at::Tensor& coords, const at::Tensor& vdw,

@@ -46,25 +46,29 @@ void path_sweep(const double* vectors, const int32_t* chunks,
 
 // fine_path.cu: the same reduction for the W window-slot rays of B
 // frames at the fine increment; vectors (B,W,3), chunks (B,W) int32,
-// coords (B,N,3), vdw (B,N) -> ok, pos, cmin (B,W)
+// coords (B,N,3), vdw (B,N), active (B,W) or null (every slot active) ->
+// ok, pos, cmin (B,W); an inactive slot writes (0, 0, 1e30).
 void fine_path(const float* vectors, const int32_t* chunks,
-               const float* coords, const float* vdw, uint8_t* ok,
-               int32_t* pos, float* cmin, int B, int W, int N, int max_steps,
-               void* stream);
+               const float* coords, const float* vdw, const uint8_t* active,
+               uint8_t* ok, int32_t* pos, float* cmin, int B, int W, int N,
+               int max_steps, void* stream);
 void fine_path(const double* vectors, const int32_t* chunks,
-               const double* coords, const double* vdw, uint8_t* ok,
-               int32_t* pos, double* cmin, int B, int W, int N, int max_steps,
-               void* stream);
+               const double* coords, const double* vdw, const uint8_t* active,
+               uint8_t* ok, int32_t* pos, double* cmin, int B, int W, int N,
+               int max_steps, void* stream);
 
 // dbscan.cu: labels (B,K) int32 of B point sets (B,K,3) with validity
-// (B,K) and eps (B,); adj (B,K,ceil(K/32)) and scratch (B,3,K) int32 are
-// caller-allocated work space.
+// (B,K) and eps (B,); threads: the block of one frame, a multiple of 32,
+// <= 1024; stored: keep the eps-graph in shared memory (else it is tested
+// anew where it is needed; cluster_kernels.dbscan_smem_bytes); scratch:
+// null keeps the frame in shared memory, else (unstored only) B frames of
+// cluster_kernels.dbscan_frame_bytes in global memory hold it.
 void dbscan(const float* points, const uint8_t* valid, const float* eps,
-            int32_t* adj, int32_t* scratch, int32_t* labels, int B, int K,
-            int min_samples, int max_clusters, void* stream);
+            int32_t* labels, int B, int K, int min_samples, int max_clusters,
+            int threads, bool stored, uint8_t* scratch, void* stream);
 void dbscan(const double* points, const uint8_t* valid, const double* eps,
-            int32_t* adj, int32_t* scratch, int32_t* labels, int B, int K,
-            int min_samples, int max_clusters, void* stream);
+            int32_t* labels, int B, int K, int min_samples, int max_clusters,
+            int threads, bool stored, uint8_t* scratch, void* stream);
 
 // lbfgsb_stable.cu: the stable L-BFGS-B per lane, d = 3 (pore centre,
 // identity axis embedding) or d = 1 (window z, z-axis embedding).

@@ -17,12 +17,12 @@ Each kernel has three functions here:
 Every function takes a leading frame axis B: rays (B, P, 3) over
 molecules (B, N, 3), one launch for all frames.
 
-``ray_exit`` and ``path_sweep`` skip, by exact bounds, the atoms that
-cannot change their outputs (``csrc/ray_exit.cu`` and
-``csrc/path_sweep.cu`` derive them).  :func:`ray_exit_keep` and
-:func:`path_sweep_keep` mirror the two rules with the kernels'
-operations; the tests and ``chip_smoke.py`` use them, the pipeline does
-not (the plain versions evaluate every atom).
+The three kernels skip, by exact bounds, the atoms that cannot change
+their outputs (``csrc/ray_exit.cu`` and ``csrc/ray_cull.cuh``, whose walk
+``path_sweep`` and ``fine_path`` share, derive them).
+:func:`ray_exit_keep` and :func:`path_sweep_keep` mirror the two rules
+with the kernels' operations; the tests and ``chip_smoke.py`` use them,
+the pipeline does not (the plain versions evaluate every atom).
 """
 
 from __future__ import annotations
@@ -333,14 +333,11 @@ def sweep_rays_per_warp(frames: int, rays: int, sms: int) -> int:
 
 
 def path_sweep_smem_bytes(n: int, element_size: int) -> int:
-    """Shared memory of a ``path_sweep`` block: the frame's atoms as
-    (x, y, z, r) records, and for each of its 8 rays a kept-atom bit mask
-    and the atoms' bounds."""
+    """Shared memory of a ``path_sweep`` or ``fine_path`` block (both are
+    8 walking warps, ``pw::walk_smem_bytes`` in ``csrc/ray_cull.cuh``):
+    the frame's atoms as (x, y, z, r) records, and for each warp a
+    kept-atom bit mask and the atoms' bounds."""
     return 4 * n * element_size + 8 * 4 * (-(-n // 32)) + 8 * n * element_size
-
-
-def _fine_smem_bytes(n: int, element_size: int) -> int:
-    return 4 * n * element_size
 
 
 def _sweep_checks(name, vectors, chunks, coords, vdw, smem_bytes):
@@ -404,23 +401,9 @@ def path_sweep(vectors, chunks, coords, vdw, max_steps: int):
 # ---------------------------------------------------------------------------
 
 
-def fine_path_plain(
-    vectors: torch.Tensor,
-    chunks: torch.Tensor,
-    coords: torch.Tensor,
-    vdw: torch.Tensor,
-    max_steps: int,
-    chunk_len: int = 16,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`path_sweep_plain` for the W window-slot rays of each frame
-    at the fine increment, as the JAX package scans it
-    (``_fine_scan_flat``, pallas_kernels.py:714-757): the path in
-    ``chunk_len``-step blocks reduced into running (ok, first-argmin
-    step, min clearance) carries, strict < across blocks.
-
-    vectors (B, W, 3), chunks (B, W) int32, coords (B, N, 3), vdw (B, N)
-    -> ok (B, W) bool, pos (B, W) int32, cmin (B, W).
-    """
+def _fine_scan(vectors, chunks, coords, vdw, max_steps, chunk_len):
+    """The JAX package's step-chunked scan (``_fine_scan_flat``) over
+    every slot: vectors (B, W, 3) over coords (B, N, 3)."""
     dtype, device = vectors.dtype, vectors.device
     chunksf = chunks.to(dtype)
     n_blocks = (max_steps + chunk_len - 1) // chunk_len
@@ -450,27 +433,80 @@ def fine_path_plain(
     return ok, pos.to(torch.int32), cmin
 
 
+def fine_path_plain(
+    vectors: torch.Tensor,
+    chunks: torch.Tensor,
+    coords: torch.Tensor,
+    vdw: torch.Tensor,
+    max_steps: int,
+    active: torch.Tensor | None = None,
+    chunk_len: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`path_sweep_plain` for the W window-slot rays of each frame
+    at the fine increment, as the JAX package scans it
+    (``_fine_scan_flat``, pallas_kernels.py:714-757): the path in
+    ``chunk_len``-step blocks reduced into running (ok, first-argmin
+    step, min clearance) carries, strict < across blocks, which gives
+    :func:`path_sweep_plain`'s outputs bit for bit.
+
+    vectors (B, W, 3), chunks (B, W) int32, coords (B, N, 3), vdw (B, N),
+    ``active`` (B, W) bool or None (every slot) -> ok (B, W) bool, pos
+    (B, W) int32, cmin (B, W).  Only active slots are computed; the others
+    hold the kernel's placeholders: ok False, pos 0, cmin 1e30.
+    """
+    if active is None:
+        return _fine_scan(vectors, chunks, coords, vdw, max_steps, chunk_len)
+    b, w = vectors.shape[:2]
+    frame = torch.arange(b, device=vectors.device).repeat_interleave(w)
+
+    def lanes(vec, ch, fr):  # (L, 3), (L,), (L,) -> (L,) outputs
+        out = _fine_scan(vec[:, None], ch[:, None], coords[fr], vdw[fr], max_steps, chunk_len)
+        return tuple(o[:, 0] for o in out)
+
+    placeholders = (
+        torch.zeros(b * w, dtype=torch.bool, device=vectors.device),
+        torch.zeros(b * w, dtype=torch.int32, device=vectors.device),
+        torch.full((b * w,), BIG, dtype=vectors.dtype, device=vectors.device),
+    )
+    out = _cuda.on_active_lanes(
+        active.reshape(b * w), lanes,
+        (vectors.reshape(b * w, 3), chunks.reshape(b * w), frame), placeholders,
+    )
+    return tuple(o.reshape(b, w) for o in out)
+
+
 def fine_path_cuda(
     vectors: torch.Tensor,
     chunks: torch.Tensor,
     coords: torch.Tensor,
     vdw: torch.Tensor,
     max_steps: int,
+    active: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`fine_path_plain` through the CUDA kernel
-    (``csrc/fine_path.cu``); same arithmetic, same first-minimum rule."""
+    (``csrc/fine_path.cu``): the same outputs bit for bit, from only the
+    atoms :func:`path_sweep_keep` keeps (the rule of ``path_sweep``), and
+    the same placeholders on inactive slots."""
     ok, pos, cmin = _sweep_checks(
-        "fine_path", vectors, chunks, coords, vdw, _fine_smem_bytes
+        "fine_path", vectors, chunks, coords, vdw, path_sweep_smem_bytes
     )
+    b, w = vectors.shape[:2]
+    if b > MAX_FRAMES:
+        msg = f"fine_path: {b} frames in one launch (at most {MAX_FRAMES})"
+        raise ValueError(msg)
+    if active is not None:
+        _cuda.check_inputs("fine_path", vectors.dtype, vectors=vectors, active=active)
+        _cuda.check_active("fine_path", active.reshape(-1), b * w)
+        _cuda.check_shape("fine_path", active, (b, w), "active")
     _cuda.load_extension().fine_path(
-        vectors, chunks, coords, vdw, ok, pos, cmin, int(max_steps)
+        vectors, chunks, coords, vdw, active, ok, pos, cmin, int(max_steps)
     )
     _cuda.LAUNCHES["fine_path"] += 1
     return ok, pos, cmin
 
 
-def fine_path(vectors, chunks, coords, vdw, max_steps: int):
+def fine_path(vectors, chunks, coords, vdw, max_steps: int, active=None):
     """Per window-slot ray (ok, pos, cmin); see :func:`fine_path_plain`."""
     if _cuda.device_type("fine_path", vectors) == "cuda":
-        return fine_path_cuda(vectors, chunks, coords, vdw, max_steps)
-    return fine_path_plain(vectors, chunks, coords, vdw, max_steps)
+        return fine_path_cuda(vectors, chunks, coords, vdw, max_steps, active)
+    return fine_path_plain(vectors, chunks, coords, vdw, max_steps, active)

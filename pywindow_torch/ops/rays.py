@@ -215,14 +215,20 @@ def path_analysis(
 
 
 def fine_path_analysis(
-    vectors: torch.Tensor, mol: MolArrays, increment: float, max_steps: int
+    vectors: torch.Tensor,
+    mol: MolArrays,
+    increment: float,
+    max_steps: int,
+    active: torch.Tensor | None = None,
 ) -> PathAnalysis:
     """:func:`path_analysis` for the few W-slot rays (B, W, 3) of the
     window refinement, at the fine increment; runs on
     ``ray_kernels.fine_path``, whose plain version is the JAX package's
-    step-chunked scan (rays.py:219-271)."""
+    step-chunked scan (rays.py:219-271).  Only the ``active`` (B, W)
+    slots are walked (None: every slot); the others hold
+    ``fine_path``'s placeholders (not ok, distance 0, width 2e30)."""
     norm, chunks = _chunks(vectors, increment)
     ok, pos, cmin = ray_kernels.fine_path(
-        vectors, chunks, mol.coords, mol.vdw, max_steps
+        vectors, chunks, mol.coords, mol.vdw, max_steps, active
     )
     return _path_result(vectors, norm, chunks, ok, pos, cmin)

@@ -349,7 +349,11 @@ def find_windows(
     exists = (w_ids[None, :] < n_clusters[:, None]) & in_cluster.any(-1)
     sel = torch.where(exists, width_masked.argmax(-1), fallback_sel[:, None])
     vectors = cpoints.gather(1, sel[..., None].expand(-1, -1, 3))  # (B, W, 3)
-    refined = rays.fine_path_analysis(vectors, shifted, cfg.increment2, l2)
+    # only the slots that hold a window are walked (their results are the
+    # only ones read below); the others hold fine_path's placeholders
+    refined = rays.fine_path_analysis(
+        vectors, shifted, cfg.increment2, l2, active=exists.contiguous()
+    )
 
     diams, centres, w_capped = _window_refine(
         shifted, vectors, refined.dist, exists, cfg

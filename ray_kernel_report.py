@@ -1,6 +1,9 @@
-"""Launch-shape timings of the two culled ray kernels on one CUDA card.
+"""Launch-shape and device timings of the culled ray kernels and DBSCAN on
+one CUDA card.
 
-Run from the root of a checkout: ``python3 ray_kernel_report.py``.
+Run from the root of a checkout: ``python3 ray_kernel_report.py
+[--kernels path_sweep,ray_exit,dbscan,fine_path] [--widths 128,256,512,1024]``
+(default: all four kernels, all four widths).
 
 On the main-path inputs that ``chip_smoke.py`` phase 3 times
 (``chip_smoke.timed_calls``: PUDXES, REYMAL, the first 1,440-frame
@@ -12,60 +15,39 @@ first 8, 32, 128 and 512 frames:
    ``ray_kernels.sweep_rays_per_warp``; every launch's outputs must equal
    the rule's to the bit;
 2. ``ray_exit`` (full and slim) with the spiral's tile order and with
-   index order; the outputs must be equal.
+   index order; the outputs must be equal;
+3. ``dbscan`` at the block ``cluster_kernels.dbscan_labels_cuda``
+   chooses, then at each of ``--widths`` threads a frame beside the
+   choice of ``cluster_kernels.dbscan_threads``; every width's labels
+   must equal the rule's (``--widths ''`` times the wrapper alone);
+4. ``fine_path`` as the pipeline calls it (its active slots).
 
 Each is timed twice: ``call``, the warm median of one wrapper call
 between CUDA events (``chip_smoke.time_ms``, as phase 3 times it; on an
 idle card a small call's reading is the wrapper's host time), and
-``device``, the same call captured :data:`GRAPH_CALLS` times in one CUDA
-graph and replayed, over the calls (the kernels back to back, no host
-in between).  Prints one line per (kernel, input) and the card's name
-and power limit.
+``device``, the same call captured in one CUDA graph and replayed
+(``chip_smoke.device_ms``: the kernels back to back, no host in
+between).  Prints one line per (kernel, input) and the card's name and
+power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 import chip_smoke
+from chip_smoke import device_ms
 from optim_kernel_report import launch_rule
-from pywindow_torch.ops import _cuda, ray_kernels
+from pywindow_torch.ops import _cuda, cluster_kernels, ray_kernels
 
 RAYS_PER_WARP = (1, 2, 4, 8)
+DBSCAN_WIDTHS = (128, 256, 512, 1024)
 #: leading slices of the sweep chunk, for launches between one molecule
 #: and the chunk
 CHUNK_SLICES = (8, 32, 128, 512)
-#: calls captured in one CUDA graph for the device time
-GRAPH_CALLS = 20
-
-
-def device_ms(fn) -> float:
-    """ms a call of ``fn`` keeps the card busy: GRAPH_CALLS calls captured
-    in one CUDA graph, the median of 5 warm replays over the calls."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()  # warm-up on the capture stream
-    torch.cuda.current_stream().wait_stream(stream)
-    torch.cuda.synchronize()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / GRAPH_CALLS)
-    return sorted(times)[2]
+KERNELS = ("path_sweep", "ray_exit", "dbscan", "fine_path")
 
 
 def both_ms(fn) -> str:
@@ -117,17 +99,57 @@ def exit_row(label, args) -> None:
     )
 
 
+def dbscan_row(label, args, widths) -> None:
+    b, k = args[0].shape[:2]
+    valid = args[1].to(torch.float64).sum(-1)
+
+    def run():
+        return cluster_kernels.dbscan_labels_cuda(*args)
+
+    ref = run()
+    row = [f"wrapper: {both_ms(run)}"]
+    for width in widths:
+        with launch_rule(cluster_kernels, "dbscan_threads", lambda f, s, w=width: w):
+            out = run()
+            torch.cuda.synchronize()
+            chip_smoke.check(torch.equal(out, ref), f"dbscan {label} {width}: labels differ")
+            row.append(f"{width}: {both_ms(run)}")
+    rule = f"; rule {cluster_kernels.dbscan_threads(b, _cuda.sm_count(args[0].device))}" if widths else ""
+    print(
+        f"dbscan {label} B={b} K={k} ({float(valid.mean()):.1f} valid a frame{rule}) call / device "
+        f"ms by threads a frame: {', '.join(row)}"
+    )
+
+
+def fine_row(label, args) -> None:
+    live = "all" if len(args) < 6 or args[5] is None else int(args[5].sum())
+    print(
+        f"fine_path {label} {tuple(args[0].shape)} ({live} slots walked) call / device ms: "
+        f"{both_ms(lambda: ray_kernels.fine_path_cuda(*args))}"
+    )
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", default=",".join(KERNELS))
+    parser.add_argument("--widths", default=",".join(map(str, DBSCAN_WIDTHS)))
+    opts = parser.parse_args()
+    wanted = opts.kernels.split(",")
+    widths = [int(w) for w in opts.widths.split(",") if w]
     smi = chip_smoke.phase_card()
     seen = chip_smoke.record_inputs()
-    sweeps = chip_smoke.timed_calls("path_sweep", seen["path_sweep"])
-    for label, args, _ in sweeps:
-        sweep_row(label, args)
-        if label == chip_smoke.SWEEP_LABEL:
-            for b in CHUNK_SLICES:
-                sweep_row(f"{label}[:{b}]", frames(args, b))
-    for label, args, _ in chip_smoke.timed_calls("ray_exit", seen["ray_exit"]):
-        exit_row(label, args)
+    rows = {
+        "path_sweep": sweep_row, "ray_exit": exit_row, "fine_path": fine_row,
+        "dbscan": lambda label, args: dbscan_row(label, args, widths),
+    }
+    for key in KERNELS:
+        if key not in wanted:
+            continue
+        for label, args, _ in chip_smoke.timed_calls(key, seen[key]):
+            rows[key](label, args)
+            if label == chip_smoke.SWEEP_LABEL and key in ("path_sweep", "dbscan"):
+                for b in CHUNK_SLICES:
+                    rows[key](f"{label}[:{b}]", frames(args, b))
     print(smi)
 
 

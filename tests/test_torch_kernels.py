@@ -6,10 +6,11 @@ neither JAX nor the test conftest's helpers, so on the card's machine
 (which has no JAX) they run as
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 
-Tolerances: the ray kernels round like their plain versions in float64
-(flags and steps equal, distances within 1e-9 Å; float32 within 1e-4 Å,
-with a few grazing rays allowed to flip); ``path_sweep`` equals its plain
-version bit for bit in both dtypes, and ``ray_exit`` equals, bit for bit,
+Tolerances: ``ray_exit`` rounds like its plain version in float64
+(flags equal, distances within 1e-9 Å; float32 within 1e-4 Å, with a few
+grazing rays allowed to flip); ``path_sweep``, ``fine_path`` and
+``dbscan`` equal their plain versions bit for bit in both dtypes, and
+``ray_exit`` equals, bit for bit,
 its own pair arithmetic over every atom (what the kernel computed before
 its cull), whatever order groups its rays; the optimiser kernels run
 float64 and stop where the plain drivers stop: x within 1e-6 Å and the
@@ -123,45 +124,146 @@ def test_path_sweep_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_fine_path_kernel_matches_plain(cuda, dtype):
-    """B = 5 frames of W = 8 rays (B * W not a multiple of anything the
-    kernel tiles by), 150 atoms padded to 152, 120 fine steps."""
+@pytest.mark.parametrize("with_active", [False, True])
+def test_fine_path_kernel_matches_plain(cuda, dtype, with_active):
+    """B = 5 frames of W = 8 rays, 150 atoms padded to 152, 120 fine steps,
+    equal to the plain version bit for bit; with ``active``, the inactive
+    slots (a whole frame of them among others) hold the placeholders on
+    both sides."""
     mol = _mol(150, 4, dtype, cuda, frames=5)
     rng = np.random.default_rng(4)
     vec = rng.normal(size=(5, 8, 3))
     vec = vec / np.linalg.norm(vec, axis=-1, keepdims=True) * rng.uniform(6, 11, (5, 8, 1))
     vectors = torch.tensor(vec, dtype=dtype, device=cuda)
     _, chunks = rays._chunks(vectors, 0.1)
+    active = None
+    if with_active:
+        active = torch.tensor(rng.random((5, 8)) > 0.5, device=cuda)
+        active[2] = False
     before = _cuda.LAUNCHES["fine_path"]
-    ok_k, pos_k, c_k = ray_kernels.fine_path(vectors, chunks, mol.coords, mol.vdw, 120)
+    got = ray_kernels.fine_path(vectors, chunks, mol.coords, mol.vdw, 120, active)
     assert _cuda.LAUNCHES["fine_path"] == before + 1
-    ok_p, pos_p, c_p = ray_kernels.fine_path_plain(vectors, chunks, mol.coords, mol.vdw, 120)
+    want = ray_kernels.fine_path_plain(vectors, chunks, mol.coords, mol.vdw, 120, active)
     torch.cuda.synchronize()
-    assert torch.equal(ok_k, ok_p) and torch.equal(pos_k, pos_p)
-    tol = 1e-9 if dtype == torch.float64 else 1e-4
-    assert float((c_k - c_p).abs().max()) <= tol
+    assert _equal(got, want)
+    if with_active:
+        assert not bool(got[0][~active].any()) and bool((got[2][~active] == 1e30).all())
+
+
+def _dbscan_plain(points, valid, eps, min_samples, max_clusters):
+    """The plain (labels, n_clusters), 64 frames at a time (its
+    (B, K, K, 3) differences would not fit at B = 1,440)."""
+    parts = [
+        cluster.dbscan(points[lo : lo + 64], valid[lo : lo + 64], eps[lo : lo + 64], min_samples, max_clusters)
+        for lo in range(0, points.shape[0], 64)
+    ]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _dbscan_sets(b, k, seed, dtype, device):
+    """B clumpy point sets of K slots (5 blobs and noise, ~10% invalid)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(b, 5, 3)) * 5
+    pts = np.concatenate(
+        [(centres[:, i : i + 1] + rng.normal(scale=0.4, size=(b, k // 5, 3))) for i in range(5)]
+        + [rng.normal(scale=6, size=(b, k - 5 * (k // 5), 3))], 1,
+    )
+    points = torch.tensor(pts, dtype=dtype, device=device)
+    valid = torch.tensor(rng.random((b, k)) > 0.1, device=device)
+    eps = torch.tensor(rng.uniform(0.8, 1.2, b), dtype=dtype, device=device)
+    return points, valid, eps
+
+
+def _dbscan_k(k, dtype):
+    """K of a case: a number, the stored route's largest K and the one
+    after it, or the shared route's largest K and the one after it (the
+    first K whose frame lives in global memory)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    last = {}
+    for j in range(32, 12000):
+        last[cluster_kernels.dbscan_route(j, size)] = j
+    if k == "stored_max":
+        return last["stored"]
+    if k == "stored_max+1":
+        return last["stored"] + 1
+    if k == "largest":
+        return last["shared"]
+    if k == "largest+1":
+        return last["shared"] + 1
+    return int(k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("k", [384, 1000])
-def test_dbscan_kernel_matches_plain(cuda, dtype, k):
-    rng = np.random.default_rng(k)
-    sets = []
-    for _ in range(2):
-        centres = rng.normal(size=(5, 3))
-        sets.append(
-            np.concatenate(
-                [c * 5 + rng.normal(scale=0.4, size=(k // 5, 3)) for c in centres]
-                + [rng.normal(scale=6, size=(k - 5 * (k // 5), 3))]
-            )
-        )
-    points = torch.tensor(np.stack(sets), dtype=dtype, device=cuda)
-    valid = torch.tensor(rng.random((2, k)) > 0.1, device=cuda)
-    eps = torch.tensor([0.9, 1.1], dtype=dtype, device=cuda)
+@pytest.mark.parametrize(
+    ("b", "k"),
+    [
+        (1, "384"), (8, "384"), (1440, "384"), (2, "1000"), (1, "stored_max"), (1, "stored_max+1"),
+        (1, "largest"), (2, "largest+1"), (1, "12000"),
+    ],
+)
+def test_dbscan_kernel_matches_plain(cuda, dtype, b, k):
+    """Label for label at B = 1, 8 and 1,440 frames, K = 384 and 1,000,
+    at the last K whose eps-graph the block stores, the first it tests
+    anew, the last whose frame fits shared memory, the first kept in
+    global memory and K = 12,000; n_clusters too."""
+    k = _dbscan_k(k, dtype)
+    points, valid, eps = _dbscan_sets(b, k, k + b, dtype, cuda)
+    before = _cuda.LAUNCHES["dbscan"]
     labels_k, n_k = cluster_kernels.dbscan(points, valid, eps, 5, 4)
-    labels_p, n_p = cluster.dbscan(points, valid, eps, 5, 4)
+    assert _cuda.LAUNCHES["dbscan"] == before + 1
+    labels_p, n_p = _dbscan_plain(points, valid, eps, 5, 4)
+    torch.cuda.synchronize()
     assert torch.equal(labels_k, labels_p)
     assert torch.equal(n_k.cpu(), n_p.cpu())
+    assert int(labels_p.max()) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dbscan_kernel_on_a_chain_and_at_any_width(cuda, dtype, monkeypatch):
+    """A 300-point chain (graph diameter 299) among noise in each of 3
+    frames, at 128, 256, 512 and 1,024 threads a frame: the plain
+    version's labels every time."""
+    rng = np.random.default_rng(21)
+    sets = []
+    for f in range(3):
+        chain = np.stack([np.arange(300) * 0.45, 0.05 * np.sin(np.arange(300) + f), np.zeros(300)], -1)
+        noise = rng.uniform(-40.0, 40.0, (84, 3)) + np.array([0.0, 0.0, 60.0])
+        sets.append(np.concatenate([chain, noise])[rng.permutation(384)])
+    points = torch.tensor(np.stack(sets), dtype=dtype, device=cuda)
+    valid = torch.tensor(rng.random((3, 384)) > 0.02, device=cuda)
+    eps = torch.full((3,), 0.5, dtype=dtype, device=cuda)
+    want = _dbscan_plain(points, valid, eps, 3, 8)[0]
+    for width in (128, 256, 512, 1024):
+        monkeypatch.setattr(cluster_kernels, "dbscan_threads", lambda f, s, w=width: w)
+        got = cluster_kernels.dbscan_labels_cuda(points, valid, eps, 3, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), width
+
+
+def test_dbscan_kernel_at_exact_eps_ties(cuda):
+    """float32 pairs (0, v) at eps = sqrt(|v|^2) on the card, where
+    fl(eps * eps) < |v|^2: the kernel's sqrt(d^2) <= eps keeps them, as
+    the plain version does."""
+    rng = np.random.default_rng(11)
+    v = rng.uniform(-1.0, 1.0, (4000, 3)).astype(np.float32)
+    d2 = (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
+    s = np.sqrt(d2)
+    tie = (d2 > s * s) & (s > 0.5)
+    v, s = v[tie][:64], s[tie][:64]
+    pts = np.zeros((64, 12, 3), dtype=np.float32)
+    pts[:, 1] = v
+    pts[:, 2] = v
+    pts[:, 3] = 2 * v
+    pts[:, 4:] = rng.uniform(20.0, 40.0, (64, 8, 3)).astype(np.float32)
+    points = torch.tensor(pts, device=cuda)
+    valid = torch.ones((64, 12), dtype=torch.bool, device=cuda)
+    eps = torch.tensor(s, device=cuda)
+    for min_samples in (2, 3):
+        got = cluster_kernels.dbscan_labels_cuda(points, valid, eps, min_samples, 8)
+        want = cluster.dbscan(points, valid, eps, min_samples, 8)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool((got[:, :4] == 0).all())
 
 
 def _assert_optimiser_lanes(x_k, f_k, cap_k, x_p, f_p, cap_p):

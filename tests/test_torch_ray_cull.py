@@ -1,4 +1,4 @@
-"""The exact atom culls of the two ray kernels, held on the CPU through
+"""The exact atom culls of the three ray kernels, held on the CPU through
 their Python mirrors and the plain versions:
 
 * ``path_sweep`` (:func:`~pywindow_torch.ops.ray_kernels.path_sweep_keep`,
@@ -6,6 +6,11 @@ their Python mirrors and the plain versions:
   kept atoms (the others parked at 1e6 with vdW 0) equals it over all
   atoms, ``torch.equal`` on ok, pos and cmin; and no probe's clearance of
   an atom lies below that atom's bound;
+* ``fine_path`` (the same rule, ``csrc/ray_cull.cuh``, on the window-slot
+  rays): ``fine_path_plain`` over each slot's kept atoms equals it over all
+  atoms, ``fine_path_plain`` equals ``path_sweep_plain`` bit for bit, the
+  ``active`` slots' outputs do not depend on the others, and no output of
+  ``full_analysis`` changes when only the active slots are walked;
 * ``ray_exit`` (:func:`~pywindow_torch.ops.ray_kernels.ray_exit_keep`,
   the cone rule of ``csrc/ray_exit.cu``, over the tiles of
   :func:`~pywindow_torch.ops.rays.spiral_tile_order`): every (ray, atom)
@@ -85,13 +90,13 @@ def _spiral_rays(p, radius, dtype, b=1):
 
 @functools.cache
 def _main_path_calls(name: str, f32: bool):
-    """Every ray_exit and path_sweep call (args, order) of
+    """Every ray_exit, path_sweep and fine_path call of
     ``full_analysis(device="cpu")``: float64, or the card's float32
     configuration."""
     import os
 
-    calls = {"ray_exit": [], "path_sweep": []}
-    exit_fn, sweep_fn = rk.ray_exit, rk.path_sweep
+    calls = {"ray_exit": [], "path_sweep": [], "fine_path": []}
+    exit_fn, sweep_fn, fine_fn = rk.ray_exit, rk.path_sweep, rk.fine_path
 
     def exit_rec(unit, rel, vdw, origin, want_exit, order):
         calls["ray_exit"].append((unit, rel, vdw, origin, want_exit, order))
@@ -101,15 +106,19 @@ def _main_path_calls(name: str, f32: bool):
         calls["path_sweep"].append(args)
         return sweep_fn(*args)
 
+    def fine_rec(*args):
+        calls["fine_path"].append(args)
+        return fine_fn(*args)
+
     old = os.environ.get("PYWINDOW_TORCH_FORCE_F32")
-    rk.ray_exit, rk.path_sweep = exit_rec, sweep_rec
+    rk.ray_exit, rk.path_sweep, rk.fine_path = exit_rec, sweep_rec, fine_rec
     try:
         if f32:
             os.environ["PYWINDOW_TORCH_FORCE_F32"] = "1"
         mol = pt.MolecularSystem.load_file(DATA / f"{name}.xyz").system_to_molecule()
         mol.full_analysis(device="cpu")
     finally:
-        rk.ray_exit, rk.path_sweep = exit_fn, sweep_fn
+        rk.ray_exit, rk.path_sweep, rk.fine_path = exit_fn, sweep_fn, fine_fn
         if old is None:
             os.environ.pop("PYWINDOW_TORCH_FORCE_F32", None)
         else:
@@ -254,6 +263,144 @@ def test_sweep_bounds_guard_tiny_vectors():
     vectors = torch.tensor([[[1e-60, 0.0, 0.0], [0.0, 0.0, 0.0], [3.0, 1.0, 0.0]]], dtype=torch.float64)
     chunks = torch.ones((1, 3), dtype=torch.int32)
     _assert_sweep_cull_exact(vectors, chunks, coords, vdw, 4)
+
+
+# -- fine_path --------------------------------------------------------------
+
+
+def _assert_fine_cull_exact(vectors, chunks, coords, vdw, max_steps):
+    """``fine_path_plain`` over each slot's kept atoms (``path_sweep_keep``,
+    the rule the two walks share; the others parked at 1e6 with vdW 0)
+    equals it over all atoms, ``torch.equal``; returns the kept counts."""
+    keep = rk.path_sweep_keep(vectors, chunks, coords, vdw, max_steps)
+    b, w = vectors.shape[:2]
+    n = coords.shape[1]
+    co_k = torch.where(keep[..., None], coords[:, None], 1.0e6).reshape(b * w, n, 3)
+    vd_k = torch.where(keep, vdw[:, None], 0.0).reshape(b * w, n)
+    full = rk.fine_path_plain(vectors, chunks, coords, vdw, max_steps)
+    part = rk.fine_path_plain(
+        vectors.reshape(b * w, 1, 3), chunks.reshape(b * w, 1), co_k, vd_k, max_steps
+    )
+    for f, q in zip(full, part):
+        assert torch.equal(f.reshape(-1), q.reshape(-1))
+    return keep.sum(-1)
+
+
+def _fine_main_calls(name, f32):
+    calls = _main_path_calls(name, f32)["fine_path"]
+    assert calls
+    for vectors, chunks, coords, vdw, max_steps, active in calls:
+        assert vectors.dtype == (torch.float32 if f32 else torch.float64)
+        assert active is not None and active.shape == chunks.shape
+    return calls
+
+
+def _adversarial_slots(dtype):
+    """(vectors, chunks, coords, vdw) of 2 frames of W = 8 slots: zero rays,
+    a ray blocked on its segment, an atom around the origin, padded atoms."""
+    coords, vdw = _shell(60, 9, dtype, pad=4, b=2)
+    rng = np.random.default_rng(9)
+    vec = rng.normal(size=(2, 8, 3))
+    vec = vec / np.linalg.norm(vec, axis=-1, keepdims=True) * rng.uniform(2.0, 11.0, (2, 8, 1))
+    vec[0, :2] = 0.0
+    vectors = torch.tensor(vec, dtype=dtype)
+    _, chunks = rays._chunks(vectors, 0.1)
+    coords[1, 0] = vectors[1, 3] * 0.5
+    coords[1, 1] = torch.tensor([0.3, -0.2, 0.1], dtype=dtype)
+    vdw[1, 1] = 1.0
+    return vectors, chunks, coords, vdw
+
+
+@pytest.mark.parametrize("case", ["PUDXES-f64", "PUDXES-f32", "REYMAL-f64", "REYMAL-f32", "random-f64", "random-f32"])
+def test_fine_path_plain_equals_path_sweep_plain(case):
+    """The JAX package's step-chunked scan (strict < across 16-step
+    blocks) gives the dense walk's outputs bit for bit: the same first
+    minimum."""
+    name, dt = case.split("-")
+    if name == "random":
+        dtype = torch.float64 if dt == "f64" else torch.float32
+        vectors, chunks, coords, vdw = _adversarial_slots(dtype)
+        calls = [(vectors, chunks, coords, vdw, steps) for steps in (5, 16, 33, 120)]
+    else:
+        calls = [c[:5] for c in _fine_main_calls(name, dt == "f32")]
+    for args in calls:
+        fine = rk.fine_path_plain(*args)
+        dense = rk.path_sweep_plain(*args)
+        for a, b in zip(fine, dense):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("name", ["PUDXES", "REYMAL"])
+def test_fine_cull_exact_on_main_path_calls(name, f32):
+    for vectors, chunks, coords, vdw, max_steps, active in _fine_main_calls(name, f32):
+        kept = _assert_fine_cull_exact(vectors, chunks, coords, vdw, max_steps)
+        # the cull's point: a few atoms decide every window ray
+        assert float(kept[active].double().mean()) < 3.0
+        assert int(kept.max()) < int((vdw[0] > 0).sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fine_cull_exact_on_adversarial_slots(dtype):
+    vectors, chunks, coords, vdw = _adversarial_slots(dtype)
+    for max_steps in (5, 16, 33, 120):
+        _assert_fine_cull_exact(vectors, chunks, coords, vdw, max_steps)
+    ok, _, cmin = rk.fine_path_plain(vectors, chunks, coords, vdw, 120)
+    assert float(cmin[1, 3]) < 0.0 and not bool(ok[1].any())
+
+
+@pytest.mark.parametrize("case", ["PUDXES-f64", "PUDXES-f32", "REYMAL-f64", "REYMAL-f32", "random-f64", "random-f32"])
+def test_fine_path_active_slots(case):
+    """With ``active``, the active slots' outputs equal the run without it
+    and the others hold the placeholders (not ok, step 0, 1e30); on the
+    main path ``active`` is ``find_windows``' ``exists`` (half the slots
+    of a cage hold no window)."""
+    name, dt = case.split("-")
+    if name == "random":
+        dtype = torch.float64 if dt == "f64" else torch.float32
+        vectors, chunks, coords, vdw = _adversarial_slots(dtype)
+        active = torch.tensor(np.random.default_rng(5).random((2, 8)) > 0.5)
+        active[1] = False  # a frame with no active slot
+        calls = [(vectors, chunks, coords, vdw, 40, active)]
+    else:
+        calls = _fine_main_calls(name, dt == "f32")
+    for *args, active in calls:
+        assert bool(active.any()) and not bool(active.all())
+        full = rk.fine_path_plain(*args)
+        part = rk.fine_path_plain(*args, active)
+        for f, q in zip(full, part):
+            assert torch.equal(f[active], q[active])
+        ok, pos, cmin = part
+        assert not bool(ok[~active].any()) and not bool(pos[~active].any())
+        assert bool((cmin[~active] == 1e30).all())
+
+
+def _props_equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _props_equal(a[k], b[k])
+    elif a is None or isinstance(a, str):
+        assert a == b
+    else:
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("name", ["PUDXES", "BATVUP"])
+def test_full_analysis_unchanged_by_fine_path_active_slots(name, f32, monkeypatch):
+    """Every output of ``full_analysis(device="cpu")`` is the same whether
+    ``fine_path`` walks only the slots that hold a window or every slot:
+    float64 runs the "classic" window optimisers, whose lanes see the
+    inactive slots' placeholders but are never read there."""
+    if f32:
+        monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
+    path = DATA / f"{name}.xyz"
+    got = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis(device="cpu")
+    fine_fn = rk.fine_path
+    monkeypatch.setattr(rk, "fine_path", lambda *args: fine_fn(*args[:5]))
+    every = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis(device="cpu")
+    _props_equal(got, every)
 
 
 # -- ray_exit -------------------------------------------------------------
