@@ -37,11 +37,18 @@ result line):
    floor; for ``dbscan`` the valid points a frame and the bound over
    the work its exact tile rule leaves (``dbscan_work``) beside the ones
    over all unordered valid pairs and over all K^2.  ``clearance_min``,
-   which no pipeline stage calls, is held on three input sets in both
-   dtypes: the shapes of tests/test_pallas.py with the padding case, Q =
-   65,536 probes against N = 4,096 atoms, and a 50^3 clearance grid over
-   the rebuilt periodic cell (1,344 atoms), with the time of
-   ``torch.cdist`` + ``amin`` beside it;
+   which no pipeline stage calls, is held to the bit (``torch.equal``,
+   NaN where the plain version is NaN) in both dtypes on: the shapes of tests/test_pallas.py with the
+   padding case, Q = 65,536 probes against N = 4,096 atoms, a 50^3
+   clearance grid over the rebuilt periodic cell (1,344 atoms) and the
+   adversarial sets of :func:`clearance_cases` (probes on atom centres
+   and 1e3 Å outside, NaN probe, atom and radius, N = 1, Q = 1, every
+   atom padded but one, Q = 1,000, N = 20,000, and far tiles a few ulps
+   either side of the cull's skip bound); the main sets are timed, with
+   ``torch.cdist`` + ``amin`` beside them, the pairs each probe's own
+   exact test keeps and the bound over them beside the every-pair
+   bound, the tile pairs and pairs its warps visit and the sort's bytes
+   (the design's work), and the instruction floors;
 4. the 7-system golden gate through
    ``MolecularSystem.load_file(...).system_to_molecule().full_analysis()``
    (the card is the default device; float32 pipeline, float64 optimiser
@@ -76,12 +83,14 @@ result line):
 
 Phases 4-6, 8, 9 and 10 are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
-have launched (all six pipeline kernels; ``clearance_min`` on its grid);
+have launched (all six pipeline kernels; ``clearance_min`` and its three
+helper passes on its grid);
 every call of the device pipeline must launch each kernel as often as
 every other (the count does not depend on the batch size), and no plain
 optimiser loop may run on a CUDA tensor.  The kernel record's launch
 counts are the DL_POLY sweep's own, and the grid's for
-``clearance_min``.
+``clearance_min``, whose entry adds its helper passes' launches
+(``helper_launches``).
 
 The last three lines of standard output are the kernel record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -218,6 +227,10 @@ PROBE_OPS = 11
 #: sums and the square root
 DBSCAN_PAIR_OPS = 9
 DBSCAN_BOX_OPS = 18
+#: clearance_min's operations per box test: per axis two differences, a
+#: compare and a select, then three squares, two sums and the compare
+#: with the skip threshold (the seed search's tests counted alike)
+CLEARANCE_BOX_OPS = 18
 
 
 def structure(name: str) -> pathlib.Path:
@@ -346,7 +359,7 @@ def record_inputs() -> dict[str, list[tuple[str, tuple, dict]]]:
     finally:
         for module, attr, fn in originals:
             setattr(module, attr, fn)
-    seen["clearance_min"] = clearance_inputs()
+    seen["clearance_min"] = clearance_inputs() + clearance_adversarial()
     return seen
 
 
@@ -379,22 +392,131 @@ def clearance_inputs() -> list[tuple[str, tuple, dict]]:
     return calls
 
 
-def periodic_grid(dtype) -> tuple:
-    """(probes, coords, vdw) of the clearance grid: 50^3 probes at the
-    voxel centres of the 24.8 Å cell against the rebuilt cell's atoms."""
+def clearance_adversarial() -> list[tuple[str, tuple, dict]]:
+    """The adversarial sets of ``clearance_min`` (:func:`clearance_cases`)
+    built in float64, then the skip bound's cases built in float32 (held
+    in float64 exactly, so the float32 comparison sees the float32
+    bound)."""
+    calls = [(f"adversarial {label}", args, {}) for label, args in clearance_cases(torch.float64, DEVICE)]
+    calls += [
+        (f"adversarial {label} (float32 bound)", _as(args, torch.float64), {})
+        for label, args in clearance_cases(torch.float32, DEVICE, large=False)
+        if label.startswith("bound")
+    ]
+    return calls
+
+
+def periodic_grid(dtype, points: int = GRID_POINTS, device=None) -> tuple:
+    """(probes, coords, vdw) of the clearance grid: ``points``^3 probes at
+    the voxel centres of the 24.8 Å cell against the rebuilt cell's
+    atoms."""
     import pywindow_torch as pt
     from pywindow_torch import tables
 
     system = pt.MolecularSystem.load_file(PERIODIC)
     rebuilt = system.rebuild_system().system
     a = float(system.system["unit_cell"][0])
-    axis = (np.arange(GRID_POINTS) + 0.5) * (a / GRID_POINTS)
+    axis = (np.arange(points) + 0.5) * (a / points)
     probes = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
     vdw = tables.ELEMENT_VDW[tables.element_ids(rebuilt["elements"])]
     return tuple(
-        torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=DEVICE)
+        torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=device or DEVICE)
         for x in (probes, rebuilt["coordinates"], vdw)
     )
+
+
+#: the adversarial sets of clearance_min at the skip bound: offsets of the
+#: far tile's squared gap from the threshold T, in units in the last place
+#: of T, and offsets of its atoms' clearance from the best, in units of
+#: the best + vdW sum
+BOUND_GAP_ULPS = (-3, -2, -1, 0, 1, 2, 3)
+BOUND_CLEARANCE_ULPS = (-2, -1, 0, 1, 2)
+
+
+def clearance_bound_case(dtype, device, ulps: int, at_threshold: bool = True) -> tuple:
+    """(probes, coords, vdw) in ``dtype`` with one probe at the origin, a
+    tile of 32 atoms at (0, 0, 1) with vdW 0.25 (clearance 0.75, exact,
+    the group's seed) and a tile of 32 atoms at (L, 0, 0) with vdW 1.5:
+    with ``at_threshold`` L^2 lands ``ulps`` places from the kernel's skip
+    threshold T(0.75, 1.5) (the nearest square to that target), else L is
+    ``ulps`` places from 2.25, so that the far atoms' clearance sits just
+    below, on or above 0.75."""
+    from pywindow_torch.ops.clearance_kernels import skip_threshold
+
+    np_t = np.float32 if dtype == torch.float32 else np.float64
+    best, r_far = np_t(0.75), np_t(1.5)
+    if at_threshold:
+        thr = skip_threshold(torch.tensor(best), torch.tensor(r_far)).numpy().astype(np_t)
+        target = thr
+        for _ in range(abs(ulps)):
+            target = np.nextafter(target, np_t(np.inf if ulps > 0 else -np.inf))
+        around = [np_t(np.sqrt(np.float64(target)))]
+        for _ in range(4):
+            around = [np.nextafter(around[0], np_t(-np.inf))] + around + [np.nextafter(around[-1], np_t(np.inf))]
+        length = min(around, key=lambda x: abs(np.float64(x * x) - np.float64(target)))
+    else:
+        length = np_t(2.25)
+        for _ in range(abs(ulps)):
+            length = np.nextafter(length, np_t(np.inf if ulps > 0 else -np.inf))
+    coords = np.zeros((64, 3), dtype=np_t)
+    coords[:32, 2] = 1.0
+    coords[32:, 0] = length
+    vdw = np.concatenate([np.full(32, 0.25), np.full(32, 1.5)]).astype(np_t)
+    return tuple(
+        torch.tensor(a, dtype=dtype, device=device)
+        for a in (np.zeros((1, 3), dtype=np_t), coords, vdw)
+    )
+
+
+def clearance_cases(dtype, device, large: bool = True) -> list[tuple[str, tuple]]:
+    """The adversarial input sets of ``clearance_min`` in ``dtype``:
+    probes on atom centres, probes 1e3 Å outside the molecule, a NaN
+    probe, a NaN atom coordinate, a NaN radius, N = 1, Q = 1, every atom
+    padded but one, Q = 1,000 (not a multiple of a warp) and the skip
+    bound's cases (:func:`clearance_bound_case`); with ``large`` also N =
+    20,000 atoms (CPU tests leave it out: the plain version holds Q x N x
+    3 differences)."""
+    rng = np.random.default_rng(7)
+
+    def f(*arrays):
+        return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrays)
+
+    coords = rng.normal(size=(300, 3)) * 6
+    vdw = rng.uniform(1.0, 2.0, 300)
+    probes = rng.normal(size=(100, 3)) * 6
+    nan_probe, nan_atom, nan_radius = probes.copy(), coords.copy(), vdw.copy()
+    nan_probe[37, 1] = np.nan
+    nan_atom[123, 2] = np.nan
+    nan_radius[45] = np.nan
+    padded = np.full((512, 3), 1.0e6)
+    padded[200] = coords[0]
+    padded_vdw = np.zeros(512)
+    padded_vdw[200] = vdw[0]
+    cases = [
+        ("atom centres", f(coords[::3], coords, vdw)),
+        ("1e3 A outside", f(rng.normal(size=(200, 3)) + [1.0e3, 0.0, 0.0], coords, vdw)),
+        ("NaN probe", f(nan_probe, coords, vdw)),
+        ("NaN atom", f(probes, nan_atom, vdw)),
+        ("NaN radius", f(probes, coords, nan_radius)),
+        ("N=1", f(probes, coords[:1], vdw[:1])),
+        ("Q=1", f(probes[:1], coords, vdw)),
+        ("padded but one", f(probes, padded, padded_vdw)),
+        ("Q=1000", f(rng.uniform(-15.0, 15.0, (1000, 3)), coords, vdw)),
+    ]
+    cases += [
+        (f"bound gap {k:+d}", clearance_bound_case(dtype, device, k)) for k in BOUND_GAP_ULPS
+    ]
+    cases += [
+        (f"bound clearance {k:+d}", clearance_bound_case(dtype, device, k, at_threshold=False))
+        for k in BOUND_CLEARANCE_ULPS
+    ]
+    if large:
+        cases.append((
+            "N=20000",
+            f(rng.uniform(-30.0, 30.0, (2048, 3)), rng.normal(size=(20000, 3)) * 15,
+              rng.uniform(1.0, 2.0, 20000)),
+        ))
+    return cases
 
 
 def time_ms(fn) -> float:
@@ -605,18 +727,29 @@ def compare_nm(label, args, kwargs, dtype):
     return _compare_lanes("nm_xy", xy_k, f_k, cap_k, xy_p, f_p, cap_p)
 
 
+def same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal``, with a NaN equal to a NaN in the same place
+    (``torch.equal`` counts NaN unequal to itself)."""
+    return (
+        a.shape == b.shape and a.dtype == b.dtype
+        and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    )
+
+
 def compare_clearance(label, args, kwargs, dtype):
-    """Equal to the plain version: the same difference-form distances
-    rounded op by op, and an exact minimum (held at 1e-12 Å in float64
-    and 1e-5 Å in float32; the largest difference is printed)."""
+    """Equal to the plain version, to the bit (NaN where it is NaN): the
+    same difference-form distances rounded op by op, and an exact minimum
+    over the pairs the exact cull keeps.  Returns the largest difference
+    over the values that are not NaN (0)."""
     from pywindow_torch.ops import clearance_kernels
 
     probes, coords, vdw = _as(args, dtype)
     got = clearance_kernels.clearance_min_cuda(probes, coords, vdw)
     ref = plain_call("clearance_min", clearance_kernels.clearance_min_plain, probes, coords, vdw)
     torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    check(err <= (1e-12 if dtype == torch.float64 else 1e-5), f"clearance_min {dtype}: differs by {err}")
+    both = ~(torch.isnan(got) | torch.isnan(ref))
+    err = float((got - ref)[both].abs().max()) if bool(both.any()) else 0.0
+    check(same_values(got, ref), f"clearance_min {label} {dtype}: differs by {err}")
     return err
 
 
@@ -654,7 +787,8 @@ def bound(key, args, kwargs, out, every_lane=False, ops=None) -> tuple[float, st
     coordinates and counts a box test for each pair of 32-point tiles
     and the unordered pairs, self included, of the tile pairs its exact
     rule does not skip (:func:`dbscan_work`: the kernel tests each pair
-    once).  ``every_lane`` counts every lane and
+    once); ``clearance_min`` counts a box test for every probe and tile
+    and the pairs of the tiles each probe needs (:func:`clearance_work`).  ``every_lane`` counts every lane and
     atom (every pair of the ray kernels, every (slot, step, atom) of
     ``fine_path``, all K^2 ordered pairs of ``dbscan``) instead, the count
     that rows measured before the flags and the culls existed used.
@@ -701,8 +835,60 @@ def operations(key, args, kwargs, out, every_lane) -> int:
     if key in ("lbfgsb_stable", "nm_xy"):
         return optimiser_work(key, args, kwargs, out, every_lane)[0]
     if key == "clearance_min":
-        return 11 * args[0].shape[0] * args[1].shape[0]
+        if every_lane:
+            return PROBE_OPS * args[0].shape[0] * args[1].shape[0]
+        work = clearance_work(args)
+        return CLEARANCE_BOX_OPS * work["boxes"] + PROBE_OPS * work["need_pairs"]
     raise KeyError(key)
+
+
+def clearance_sort_bytes(args) -> int:
+    """Bytes the sort passes of ``clearance_min`` move beyond the inputs
+    and the output: the keys, the sorted probes (x, y, z) and atoms (x,
+    y, z, vdW), the order and the tiles, each written once and read
+    once, and the counters written, read and offset."""
+    from pywindow_torch.ops import clearance_kernels as ck
+
+    q, n = args[0].shape[0], args[1].shape[0]
+    size = args[0].element_size()
+    tiles = -(-n // ck.TILE)
+    return 2 * (4 * (q + n) + size * (3 * q + 4 * n) + 4 * (q + n) + 8 * size * tiles) + 3 * 4 * ck.WORK_INTS
+
+
+def clearance_work(args) -> dict[str, int]:
+    """``clearance_min``'s work on one call: a kernel launch's own orders
+    (``ClearanceWork.order``) through the mirror
+    ``clearance_kernels.clearance_keep``: groups of 32 probes, tiles of 32
+    atoms, box tests (every live probe against every tile but its seed,
+    and each group's seed search); the (probe, atom) pairs of the tiles
+    each probe needs (``need_pairs``: the tile of its minimum and those
+    its exact test keeps with that minimum as its best, whatever the
+    order: what the function needs, the bound's count); those of the
+    tiles its own test keeps with its running minimum in the kernel's
+    order (``lane_pairs``); and the (group, tile) pairs its warp visits
+    and the (probe, atom) pairs they hold (``tile_pairs``, ``pairs``:
+    the design's work, every lane computing every tile that any lane of
+    its warp keeps)."""
+    from pywindow_torch.ops import clearance_kernels as ck
+
+    probes, coords, vdw = args
+    q, n = probes.shape[0], coords.shape[0]
+    _, work = ck.clearance_min_launch(probes, coords, vdw)
+    orders = work.order.long()
+    cull = ck.clearance_keep(probes, coords, vdw, probe_order=orders[:q], atom_order=orders[q:])
+    g, nt = cull.kept.shape
+    lanes = torch.full((g,), ck.GROUP, dtype=torch.int64, device=probes.device)
+    lanes[-1] = q - ck.GROUP * (g - 1)
+    atoms = torch.full((nt,), ck.TILE, dtype=torch.int64, device=probes.device)
+    atoms[-1] = n - ck.TILE * (nt - 1)
+    return {
+        "groups": g, "tiles": nt, "boxes": q * (nt - 1) + g * nt,
+        "tile_pairs": int(cull.kept.sum()),
+        "pairs": int((cull.kept.to(torch.int64) * lanes[:, None] * atoms[None, :]).sum()),
+        "lane_pairs": int((cull.lane_kept.to(torch.int64) * atoms).sum()),
+        "need_tiles": int(cull.needed.sum()),
+        "need_pairs": int((cull.needed.to(torch.int64) * atoms).sum()),
+    }
 
 
 def dbscan_pairs(args) -> torch.Tensor:
@@ -860,6 +1046,85 @@ def ray_rows(key, label, args) -> None:
         f"over every pair ({all_ops:.4e}); fp32 instruction floor {fp32_floor(key, args):.4e} ms "
         f"({fp32_floor(key, args, every_lane=True):.4e} ms over every pair)"
     )
+
+
+def clearance_rows(label, args, out) -> None:
+    """``clearance_min``'s extra readings of a timed call: each launch's
+    device time; the pairs each probe needs (the function's work, which
+    the bound counts beside its box tests), with the bound and the
+    every-pair bound in brackets; the pairs its own test keeps with its
+    running minimum, and the pairs and tile pairs its warp visits (the
+    design's work: every lane of a warp computes every tile that any
+    lane keeps), per probe and in total, the design's work with the
+    sort's bytes at the peak rates; and the FP32 or FP64 instruction
+    floor of each count, each square root taken."""
+    from pywindow_torch.ops import clearance_kernels as ck
+
+    q, n = args[0].shape[0], args[1].shape[0]
+    fp64 = args[0].dtype == torch.float64
+    fp = "fp64" if fp64 else "fp32"
+    every = q * n
+    passes = kernel_device_us(lambda: ck.clearance_min_cuda(*args))
+    print(
+        f"    clearance_min {label} {args[0].dtype}: device us a call by kernel (torch.profiler, "
+        f"20 calls): " + ", ".join(f"{k} {v:.2f}" for k, v in passes.items())
+    )
+    work = clearance_work(args)
+    sqrt_extra = (SQRT_DIV_INSTR if fp64 else SQRT_F32_INSTR) - 1
+    instr = FP64_INSTR if fp64 else FP32_INSTR
+
+    def ops(pairs):
+        return CLEARANCE_BOX_OPS * work["boxes"] + PROBE_OPS * pairs
+
+    def floor(pairs):
+        return 1e3 * (ops(pairs) + sqrt_extra * pairs) / instr
+
+    def share(pairs):
+        return f"{pairs} of {every} pairs ({pairs / q:.1f} a probe, {100 * pairs / every:.3f}%)"
+
+    ms, by = bound("clearance_min", args, {}, out)
+    print(
+        f"    clearance_min {label} {args[0].dtype}: the probes need {work['need_tiles'] / q:.2f} of "
+        f"{work['tiles']} tiles a probe, {share(work['need_pairs'])}; bound {ms:.5f} ms ({by}; "
+        f"{work['boxes']} box tests and those pairs) "
+        f"[every pair {bound('clearance_min', args, {}, out, every_lane=True)[0]:.5f} ms]; "
+        f"{fp} instruction floor {floor(work['need_pairs']):.5f} ms"
+    )
+    design_bytes = sum(a.numel() * a.element_size() for a in args) + out.numel() * out.element_size()
+    design_bytes += clearance_sort_bytes(args)
+    design_ms = 1e3 * max(design_bytes / PEAK_BYTES, ops(work["pairs"]) / PEAK_OPS[args[0].dtype])
+    print(
+        f"    clearance_min {label} {args[0].dtype}: design work: each probe's own test with its "
+        f"running minimum keeps {share(work['lane_pairs'])}, {fp} floor "
+        f"{floor(work['lane_pairs']):.5f} ms; a warp visits {work['tile_pairs']} of "
+        f"{work['groups'] * work['tiles']} tile pairs ({work['tile_pairs'] / work['groups']:.2f} of "
+        f"{work['tiles']} tiles a group), {share(work['pairs'])}, {fp} floor "
+        f"{floor(work['pairs']):.5f} ms; with {clearance_sort_bytes(args)} sort bytes "
+        f"{design_ms:.5f} ms at the peak rates"
+    )
+
+
+def kernel_device_us(fn, calls: int = 20) -> dict[str, float]:
+    """Device µs a call of ``fn`` spends in each CUDA kernel, by kernel
+    function name, from torch.profiler over ``calls`` warm calls."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, float] = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
+            per[name.group(1) if name else e.name] += (e.time_range.end - e.time_range.start) / calls
+    return dict(per)
 
 
 def dbscan_rows(label, args, out) -> None:
@@ -1020,6 +1285,7 @@ def phase_kernels() -> dict[str, dict]:
             timed = [
                 (label, _as(args, dt), kwargs)
                 for label, args, kwargs in sorted(calls, key=lambda c: c[0] != large[0])
+                if not label.startswith("adversarial")
                 for dt in ((torch.float32, torch.float64) if label in large else (torch.float32,))
             ]
         else:
@@ -1053,6 +1319,8 @@ def phase_kernels() -> dict[str, dict]:
                 ray_rows(key, label, args)
             if key == "dbscan":
                 dbscan_rows(label, args, out)
+            if key == "clearance_min":
+                clearance_rows(label, args, out)
         print(
             f"kernel {key}: {len(calls)} calls checked, "
             f"max abs err {worst:.3e} ({dtypes[-1]})"
@@ -1077,6 +1345,7 @@ def main_path(label: str, pipeline_calls: list, kernels: tuple = PIPELINE_KERNEL
     from pywindow_torch.ops import (
         _cuda,
         analysis,
+        clearance_kernels,
         lbfgsb,
         lbfgsb_kernels,
         nm_kernels,
@@ -1120,7 +1389,7 @@ def main_path(label: str, pipeline_calls: list, kernels: tuple = PIPELINE_KERNEL
         _cuda.LAUNCHES.clear()
         yield
         torch.cuda.synchronize()
-        launches = {k: _cuda.LAUNCHES[k] for k in KERNELS}
+        launches = {k: _cuda.LAUNCHES[k] for k in (*KERNELS, *clearance_kernels.HELPER_KERNELS)}
         print(f"{label}: launches {json.dumps(launches)}")
         for key in kernels:
             check(launches[key] > 0, f"{label}: {key} was not launched")
@@ -1645,7 +1914,9 @@ def main() -> None:
     with main_path("periodic trajectory", calls):
         periodic = phase_periodic_trajectory(calls)
     phase_periodic_serial(periodic)
-    with main_path("clearance grid", calls, kernels=("clearance_min",)):
+    from pywindow_torch.ops.clearance_kernels import HELPER_KERNELS
+
+    with main_path("clearance grid", calls, kernels=("clearance_min",) + HELPER_KERNELS):
         phase_clearance_grid()
 
     per_call = {json.dumps(delta, sort_keys=True) for _, _, delta, _ in calls}
@@ -1656,6 +1927,9 @@ def main() -> None:
     def launches(key):
         path = "clearance grid" if key == "clearance_min" else "sweep"
         return main_path.launches[path][key]
+
+    # clearance_min's helper passes, launched once with each sweep launch
+    helpers = {"clearance_min": {k: main_path.launches["clearance grid"][k] for k in HELPER_KERNELS}}
 
     kernels = [
         {
@@ -1671,6 +1945,7 @@ def main() -> None:
             "bound_ms": record[key]["bound_ms"],
             "bound_by": record[key]["bound_by"],
             "library_ms": record[key]["library_ms"],
+            **({"helper_launches": helpers[key]} if key in helpers else {}),
         }
         for key, (src, replaces) in KERNELS.items()
     ]

@@ -24,6 +24,25 @@ import os
 import torch
 
 
+def warm_cpu_math() -> None:
+    """One discarded multithreaded ``torch.sqrt`` in each float dtype.
+
+    With torch 2.13.0+cpu (MKL vector math, 8 OpenMP threads, an AVX-512
+    host) the first multithreaded ``torch.sqrt`` of a process returned,
+    in some processes and not others, one thread's share of the elements
+    at reduced precision; later calls were unaffected.  The plain
+    versions on the CPU take square roots of (Q, N) or larger tensors,
+    so the first of them could return a wrong answer.  Called once at
+    import, with enough elements to engage every thread.
+    """
+    n = torch.get_num_threads() * 32768
+    for dtype in (torch.float32, torch.float64):
+        torch.sqrt(torch.ones(n, dtype=dtype))
+
+
+warm_cpu_math()
+
+
 def resolve_device(device: torch.device | str) -> torch.device:
     """The device an entry point runs on; raises when the card is asked
     for and none is available (there is no fallback to the CPU)."""

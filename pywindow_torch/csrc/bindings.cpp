@@ -183,18 +183,34 @@ void nm_xy(const at::Tensor& coords, const at::Tensor& vdw,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+template <typename T>
+void clearance_min_t(const at::Tensor& probes, const at::Tensor& coords,
+                     const at::Tensor& vdw, at::Tensor& out,
+                     at::Tensor& counts, at::Tensor& keys, at::Tensor& order,
+                     at::Tensor& sorted_probes, at::Tensor& sorted_atoms,
+                     at::Tensor& tiles) {
+  const pw::ClearanceWork<T> work = {
+      counts.data_ptr<int32_t>(), keys.data_ptr<int32_t>(),
+      order.data_ptr<int32_t>(),  sorted_probes.data_ptr<T>(),
+      sorted_atoms.data_ptr<T>(), tiles.data_ptr<T>()};
+  pw::clearance_min(probes.data_ptr<T>(), coords.data_ptr<T>(),
+                    vdw.data_ptr<T>(), out.data_ptr<T>(), dim(probes, 0),
+                    dim(coords, 0), work, current_stream(probes));
+}
+
 void clearance_min(const at::Tensor& probes, const at::Tensor& coords,
-                   const at::Tensor& vdw, at::Tensor out) {
+                   const at::Tensor& vdw, at::Tensor out, at::Tensor counts,
+                   at::Tensor keys, at::Tensor order, at::Tensor sorted_probes,
+                   at::Tensor sorted_atoms, at::Tensor tiles) {
   const c10::cuda::CUDAGuard guard(probes.device());
   if (probes.scalar_type() == at::kDouble) {
-    pw::clearance_min(probes.data_ptr<double>(), coords.data_ptr<double>(),
-                      vdw.data_ptr<double>(), out.data_ptr<double>(),
-                      dim(probes, 0), dim(coords, 0), current_stream(probes));
+    clearance_min_t<double>(probes, coords, vdw, out, counts, keys, order,
+                            sorted_probes, sorted_atoms, tiles);
   } else {
-    pw::clearance_min(probes.data_ptr<float>(), coords.data_ptr<float>(),
-                      vdw.data_ptr<float>(), out.data_ptr<float>(),
-                      dim(probes, 0), dim(coords, 0), current_stream(probes));
+    clearance_min_t<float>(probes, coords, vdw, out, counts, keys, order,
+                           sorted_probes, sorted_atoms, tiles);
   }
+  // launch errors are sticky until read: one check covers the four launches
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

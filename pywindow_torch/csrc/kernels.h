@@ -108,10 +108,24 @@ void nm_xy(const double* coords, const double* vdw, const double* zanchor,
 
 // clearance_min.cu: min_i(|x_i - p| - vdw_i) of Q probes (Q,3) against
 // N atoms, coords (N,3) and vdw (N,), padded atoms parked far away with
-// vdW 0 -> out (Q,).  No frame axis: one probe set, one molecule.
+// vdW 0 -> out (Q,).  No frame axis: one probe set, one molecule.  Four
+// launches: the atoms' frame, the keys (and their scan), the scatter
+// into sorted order (and the 32-atom tiles), and the culled sweep.  The
+// workspace (ops/clearance_kernels.clearance_workspace):
+template <typename T>
+struct ClearanceWork {
+  int32_t* counts;   // WORK_INTS: key and done counters, the frame
+  int32_t* keys;     // Q + N keys, probes first
+  int32_t* order;    // Q + N: sorted position -> index in its array
+  T* sorted_probes;  // (Q, 3)
+  T* sorted_atoms;   // (N, 4): x, y, z, vdw
+  T* tiles;          // (ceil(N/32), 8): lo, largest vdW, hi, flag
+};
 void clearance_min(const float* probes, const float* coords, const float* vdw,
-                   float* out, int Q, int N, void* stream);
+                   float* out, int Q, int N, const ClearanceWork<float>& work,
+                   void* stream);
 void clearance_min(const double* probes, const double* coords,
-                   const double* vdw, double* out, int Q, int N, void* stream);
+                   const double* vdw, double* out, int Q, int N,
+                   const ClearanceWork<double>& work, void* stream);
 
 }  // namespace pw

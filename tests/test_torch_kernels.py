@@ -9,7 +9,8 @@ neither JAX nor the test conftest's helpers, so on the card's machine
 Tolerances: ``ray_exit`` rounds like its plain version in float64
 (flags equal, distances within 1e-9 Å; float32 within 1e-4 Å, with a few
 grazing rays allowed to flip); ``path_sweep``, ``fine_path`` and
-``dbscan`` equal their plain versions bit for bit in both dtypes, and
+``dbscan`` equal their plain versions bit for bit in both dtypes, so
+does ``clearance_min`` (NaN where the plain version is NaN), and
 ``ray_exit`` equals, bit for bit,
 its own pair arithmetic over every atom (what the kernel computed before
 its cull), whatever order groups its rays; the optimiser kernels run
@@ -294,6 +295,72 @@ def test_clearance_min_kernel_matches_plain(cuda, dtype, q, n):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (q,)
     assert torch.equal(got, ref)
+
+
+def _same(a, b):
+    """torch.equal, with NaN equal to NaN in the same place."""
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _clearance_plain_sliced(probes, coords, vdw):
+    # the plain version holds (Q, N, 3) differences: 1,024 probes a slice
+    return torch.cat([
+        clearance_kernels.clearance_min_plain(probes[lo : lo + 1024], coords, vdw)
+        for lo in range(0, probes.shape[0], 1024)
+    ])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_clearance_min_cull_equals_plain_on_adversarial_sets(cuda, dtype):
+    """The exact cull changes nothing, to the bit, on
+    chip_smoke.clearance_cases: probes on atom centres and
+    1e3 Å outside, NaN probe, atom and radius (NaN where the plain version
+    is), N = 1, Q = 1, every atom padded but one, Q = 1,000 (not a
+    multiple of the 32-probe group), far tiles a few ulps either side of
+    the skip bound, N = 20,000 (625 tiles).  One sweep launch a call, and
+    one of each helper pass."""
+    import chip_smoke
+
+    for label, args in chip_smoke.clearance_cases(dtype, cuda):
+        before = dict(_cuda.LAUNCHES)
+        got = clearance_kernels.clearance_min(*args)
+        for key in ("clearance_min",) + clearance_kernels.HELPER_KERNELS:
+            assert _cuda.LAUNCHES[key] == before.get(key, 0) + 1, (label, key)
+        ref = _clearance_plain_sliced(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == ref.shape, label
+        assert _same(got, ref), label
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_clearance_min_sort_and_tiles_match_the_mirror(cuda, dtype):
+    """The kernel's passes on the 12^3 periodic grid: its probe and atom
+    orders are permutations sorted by the mirror's keys
+    (clearance_kernels.clearance_keys), and its tiles equal the mirror's
+    (clearance_tiles) for its atom order; the mirror's minima over the
+    tiles it keeps under the kernel's orders equal the kernel's output."""
+    import chip_smoke
+
+    probes, coords, vdw = chip_smoke.periodic_grid(dtype, points=12, device=cuda)
+    q, n = probes.shape[0], coords.shape[0]
+    out, work = clearance_kernels.clearance_min_launch(probes, coords, vdw)
+    torch.cuda.synchronize()
+    probe_order, atom_order = work.order[:q].long(), work.order[q:].long()
+    assert torch.equal(probe_order.sort().values, torch.arange(q, device=cuda))
+    assert torch.equal(atom_order.sort().values, torch.arange(n, device=cuda))
+    pk, ak = clearance_kernels.clearance_keys(probes, coords)
+    assert bool((pk[probe_order].diff() >= 0).all()) and bool((ak[atom_order].diff() >= 0).all())
+    assert torch.equal(work.sorted_probes, probes[probe_order])
+    atoms = torch.cat([coords[atom_order], vdw[atom_order, None]], -1)
+    assert torch.equal(work.sorted_atoms, atoms)
+    lo, rmax, hi, flag = clearance_kernels.clearance_tiles(atoms)
+    tiles = torch.cat([lo, rmax[:, None], hi, flag[:, None].to(dtype)], -1)
+    assert torch.equal(work.tiles, tiles)
+    cull = clearance_kernels.clearance_keep(
+        probes, coords, vdw, probe_order=probe_order, atom_order=atom_order
+    )
+    assert torch.equal(cull.best, out)
+    assert torch.equal(out, clearance_kernels.clearance_min_plain(probes, coords, vdw))
 
 
 def test_lbfgsb_stable_kernel_matches_plain_pore_lanes(cuda):
