@@ -57,14 +57,28 @@ result line):
    within 0.01 Å of the goldens;
 6. the trajectory sweep at full width: a 4,320-frame DL_POLY HISTORY
    (the 20-frame CC3 fixture cycled, as ``bench.py`` builds it) through
-   ``DLPOLY(path).analysis_batched(..., batch_size=1440)``: all results
-   present and finite, frames per second and peak device memory per
-   chunk; then, outside the sweep's launch count, eight distinct frames
-   against the single-frame path (pore_opt against ``full_analysis()``,
-   windows against the frame alone at the sweep's sampling pin);
+   ``DLPOLY(path).analysis_batched(..., batch_size=1440)``, the streamed
+   route it takes by default (slab k+1 decoded on a thread while the
+   card runs chunk k, chunks copied from the pinned store of decoded
+   frames on a side stream, results
+   collected and converted by the native converter on a thread): all
+   results present and finite, frames per second and peak device memory
+   per chunk; then, outside the sweep's launch count, eight distinct
+   frames against the single-frame path (pore_opt against
+   ``full_analysis()``, windows against the frame alone at the sweep's
+   sampling pin); (a) the streamed route again and the up-front route
+   (every frame decoded, then ``sweep_uniform``) at the same pin, both
+   timed, equal bit for bit on every frame, with the decode seconds the
+   stream hid behind the card; (c) every packed block of that run
+   through the native and the plain dict converters, equal dicts, both
+   timed; (b) an escalation case, the first 1,440 frames and the same
+   frames scaled by 1.35 through ``sweep_stream`` with a size gate,
+   equal to ``sweep_uniform`` bit for bit, the delivery before the
+   restart flagged not final and the last final;
 7. the profile: host stage spans of one PUDXES and one REYMAL molecule,
-   and the device's busy share and kernel launches of a molecule and of
-   a 1,440-frame chunk (``torch.profiler``);
+   the device's busy share and kernel launches of a molecule and of
+   a 1,440-frame chunk (``torch.profiler``), and seven more warm runs of
+   each molecule with the garbage collector's oldest-generation passes;
 8. the periodic system: ``MolecularSystem.load_file(system_periodic.pdb)``,
    ``rebuild_system()`` atom for atom against the reference's rebuild
    (``system_periodic_rebuild.pdb``), then ``make_modular(rebuild=True)``
@@ -79,9 +93,22 @@ result line):
    device time, peak device memory and the native library's calls; then
    frames 0, 31, 63 and 95 against the serial ``analysis()``;
 10. the clearance grid through ``clearance_min``, the entry point of the
-   one kernel that no pipeline stage calls.
+   one kernel that no pipeline stage calls;
+11. the public surface on the card: ``utilities.find_windows``,
+   ``find_average_diameter``, ``opt_pore_diameter`` and
+   ``window_analysis`` on PUDXES and REYMAL within 0.01 Å of the
+   goldens, each call's own launches read on its thread (counts set to
+   0 before it) and holding the kernels it must reach; the three scipy
+   objectives on the card equal to ``pore_diameter``;
+   ``calculate_shape_descriptors`` against the numpy ones, the command
+   line's ``analyze`` and ``trajectory`` in subprocesses, each
+   launching the six pipeline kernels, and one molecule under
+   ``profiling.trace`` (the six pipeline kernels in the trace); then,
+   off the main paths,
+   ``dbscan_spiral`` on a sweep chunk's whole-spiral ray endpoints,
+   timed beside the dbscan kernel on the same points.
 
-Phases 4-6, 8, 9 and 10 are the main paths: before each the kernel
+Phases 4-6, 8, 9, 10 and 11 are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
 have launched (all six pipeline kernels; ``clearance_min`` and its three
 helper passes on its grid);
@@ -101,8 +128,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
 import subprocess
+import statistics
 import sys
 import time
 
@@ -1370,12 +1399,15 @@ def main_path(label: str, pipeline_calls: list, kernels: tuple = PIPELINE_KERNEL
     run_pipeline = analysis.run_pipeline
 
     def counted_pipeline(mols, sizes, cfg):
-        before = dict(_cuda.LAUNCHES)
+        # the calling thread's own launches: a sweep's collector thread
+        # re-runs saturated frames while the main thread dispatches
+        mine = _cuda.thread_launches()
+        before = dict(mine)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out = run_pipeline(mols, sizes, cfg)
         torch.cuda.synchronize()
-        delta = {k: _cuda.LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
+        delta = {k: mine[k] - before.get(k, 0) for k in KERNELS}
         pipeline_calls.append(
             (label, mols.coords.shape[0], delta, torch.cuda.max_memory_allocated())
         )
@@ -1494,39 +1526,63 @@ def synth_history(n_frames: int) -> pathlib.Path:
     return out
 
 
+@contextlib.contextmanager
+def stream_spy(runs: list):
+    """Record each streamed sweep made inside the block: every frame's
+    maximum diameter as its slab decoder returned it (their maximum is
+    the sampling pin) and the size gate at each delivery."""
+    from pywindow_torch.parallel import batch
+
+    sweep_stream = batch.sweep_stream
+
+    def spy(elements, n_frames, decode_slab, on_batch, *args, size_gate=None, **kwargs):
+        run = {"maxd": np.full(n_frames, np.nan), "gate": []}
+        runs.append(run)
+
+        def decode(lo, hi, **slabs):
+            run["maxd"][lo:hi] = decode_slab(lo, hi, **slabs)
+            return run["maxd"][lo:hi]
+
+        def deliver(positions, results):
+            run["gate"].append(None if size_gate is None else bool(size_gate["final"]))
+            on_batch(positions, results)
+
+        return sweep_stream(elements, n_frames, decode, deliver, *args, size_gate=size_gate, **kwargs)
+
+    batch.sweep_stream = spy
+    try:
+        yield
+    finally:
+        batch.sweep_stream = sweep_stream
+
+
 def phase_sweep(pipeline_calls: list):
-    """The 4,320-frame sweep; returns the trajectory and the sampling
-    pin the sweep used (the largest frame's maximum diameter)."""
+    """The 4,320-frame sweep through the route ``analysis_batched`` takes
+    by default, the streamed one; returns the trajectory and its frames'
+    maximum diameters (their maximum is the sweep's sampling pin)."""
     import pywindow_torch as pt
 
-    from pywindow_torch import native
-    from pywindow_torch.parallel import batch
+    from pywindow_torch import native, profiling
     from pywindow_torch.profiling import METRICS
 
+    profiling.enable()
     path = synth_history(SWEEP_FRAMES)
     first = len(pipeline_calls)
     before, calls_before = dict(METRICS.stage_seconds), dict(native.CALLS)
-    pins = []
-    sweep_uniform = batch.sweep_uniform
-
-    def pinned(elements, coords, maxd, *args, **kwargs):
-        ref = kwargs.get("reference_max_diameter")
-        pins.append(float(np.max(maxd)) if ref is None else float(ref))
-        return sweep_uniform(elements, coords, maxd, *args, **kwargs)
-
+    runs: list = []
     t0 = time.perf_counter()
     traj = pt.DLPOLY(path)
-    batch.sweep_uniform = pinned
-    try:
+    with stream_spy(runs):
         traj.analysis_batched(swap_atoms={"he": "H"}, forcefield="OPLS", batch_size=SWEEP_CHUNK)
-    finally:
-        batch.sweep_uniform = sweep_uniform
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check(len(pins) == 1, f"sweep: {len(pins)} uniform sweeps, expected 1")
+    check(len(runs) == 1, f"sweep: {len(runs)} streamed sweeps, expected 1")
+    maxd = runs[0]["maxd"]
+    check(bool(np.isfinite(maxd).all()), "sweep: a slab was never decoded")
+    check(runs[0]["gate"][-1] is True, "sweep: the last delivery was not final")
     sweep_stages("sweep", before)
     calls = native_calls("sweep", calls_before)
-    for name in ("map_history", "decode_dlpoly_frames_batch"):
+    for name in ("map_history", "decode_dlpoly_frames_batch", "props_dicts"):
         check(calls.get(name, 0) > 0, f"sweep: native {name} never ran")
     out = traj.analysis_output
     check(len(out) == SWEEP_FRAMES, f"sweep: {len(out)} of {SWEEP_FRAMES} frames")
@@ -1538,11 +1594,192 @@ def phase_sweep(pipeline_calls: list):
     check(len(chunks) == SWEEP_FRAMES // SWEEP_CHUNK, f"sweep: {len(chunks)} full chunks")
     print(
         f"sweep: {SWEEP_FRAMES} frames in {seconds:.3f} s = {SWEEP_FRAMES / seconds:.1f} frames/s "
-        f"(batch_size {SWEEP_CHUNK}, DLPOLY map + decode + analysis)"
+        f"(batch_size {SWEEP_CHUNK}, DLPOLY map + streamed decode + analysis, each pipeline "
+        "call synchronised by the launch count)"
     )
     for _, b, _, peak in pipeline_calls[first:]:
         print(f"  sweep pipeline call: B={b}, peak device memory {peak / 2**30:.3f} GiB")
-    return traj, pins[0]
+    return traj, maxd
+
+
+SWEEP_FIELDS = (
+    ("pore_diameter", "diameter"), ("pore_diameter_opt", "diameter"),
+    ("average_diameter", None), ("maximum_diameter", "diameter"),
+    ("windows", "diameters"), ("windows", "centre_of_mass"),
+)
+
+
+def same_results(label: str, got: dict, ref: dict) -> None:
+    """Two sweeps' frames: every pore, average, maximum and window value
+    equal bit for bit."""
+    check(sorted(got) == sorted(ref), f"{label}: frames differ")
+    for f in ref:
+        for key, sub in SWEEP_FIELDS:
+            a = got[f][key] if sub is None else got[f][key][sub]
+            b = ref[f][key] if sub is None else ref[f][key][sub]
+            check((a is None) == (b is None), f"{label} frame {f}: {key} {sub} present in one only")
+            if b is not None:
+                check(
+                    np.array_equal(np.asarray(a), np.asarray(b)),
+                    f"{label} frame {f}: {key} {sub} differs ({a} against {b})",
+                )
+
+
+def phase_sweep_routes(traj, maxd):
+    """Outside the launch count: (a) the streamed route again and the
+    up-front route (every frame decoded, then ``sweep_uniform``) at the
+    same pin, timed, equal bit for bit; the decode seconds the stream
+    hid behind the device; (c) every chunk's packed results through the
+    native and the plain dict converters, equal dicts, both timed.
+    Returns the decoded (elements, coordinates) for phase (b)."""
+    import pywindow_torch as pt
+
+    from pywindow_torch.ops import analysis
+    from pywindow_torch.ops.analysis import static_sizes
+    from pywindow_torch.config import DEFAULT_CONFIG
+    from pywindow_torch.parallel import batch
+    from pywindow_torch.profiling import METRICS
+
+    ff = {"swap_atoms": {"he": "H"}, "forcefield": "OPLS"}
+    flats = []
+    to_dicts = batch.to_properties_dicts_bulk
+
+    def capture(flat, w):
+        flats.append((flat.copy(), w))
+        return to_dicts(flat, w)
+
+    before = dict(METRICS.stage_seconds)
+    batch.to_properties_dicts_bulk = capture
+    batch.LEARNED_CAPS._caps.clear()
+    try:
+        t0 = time.perf_counter()
+        stream = pt.DLPOLY(traj.filepath)
+        stream.analysis_batched(batch_size=SWEEP_CHUNK, **ff)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+    finally:
+        batch.to_properties_dicts_bulk = to_dicts
+    spans = sweep_stages("streamed route", before)
+    decode, wait = spans.get("sweep_decode", 0.0), spans.get("sweep_decode_wait", 0.0)
+    print(
+        f"streamed route: {SWEEP_FRAMES / t_stream:.1f} frames/s ({t_stream:.4f} s); decode "
+        f"{decode:.4f} s on the decoder and main threads, of which {max(decode - wait, 0.0):.4f} s "
+        f"hidden behind the device (the main thread waited {wait:.4f} s for slabs); sweep_step "
+        f"{spans.get('sweep_step', 0.0):.4f} s of device time (CUDA events)"
+    )
+
+    batch.LEARNED_CAPS._caps.clear()
+    t0 = time.perf_counter()
+    up = pt.DLPOLY(traj.filepath)
+    elements, coords = up._decode_uniform(list(range(up.no_of_frames)), ff["swap_atoms"], ff["forcefield"])
+    maxd_dev = batch.frame_max_diameters(elements, coords, DEVICE)
+    got: dict = {}
+    batch.sweep_uniform(
+        elements, coords, maxd, lambda pos, res: got.update(zip(pos.tolist(), res)),
+        batch_size=SWEEP_CHUNK,
+    )
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    check(
+        static_sizes(float(maxd_dev.max()), DEFAULT_CONFIG)
+        == static_sizes(float(maxd.max()), DEFAULT_CONFIG),
+        "up-front route: the device maximum diameters give other sampling sizes",
+    )
+    print(
+        f"up-front route (map, decode every frame, maximum diameters on the card, "
+        f"sweep_uniform): {SWEEP_FRAMES / t_up:.1f} frames/s ({t_up:.4f} s)"
+    )
+    streamed = {f: stream.analysis_output[f]["0"] for f in stream.analysis_output}
+    same_results("streamed vs up-front", streamed, got)
+    same_results("streamed vs the main path", streamed, {f: traj.analysis_output[f]["0"] for f in traj.analysis_output})
+    print(f"streamed vs up-front route: all {SWEEP_FRAMES} frames equal bit for bit")
+
+    t_native = t_plain = 0.0
+    rows = 0
+    for flat, w in flats:
+        t0 = time.perf_counter()
+        native_dicts = analysis.to_properties_dicts_bulk(flat, w)
+        t1 = time.perf_counter()
+        plain_dicts = analysis.to_properties_dicts_bulk_plain(flat, w)
+        t2 = time.perf_counter()
+        t_native, t_plain, rows = t_native + t1 - t0, t_plain + t2 - t1, rows + len(flat)
+        same_dicts(native_dicts, plain_dicts)
+    print(
+        f"dicts: {len(flats)} packed blocks, {rows} rows ({flats[0][0].dtype}): native converter "
+        f"{t_native:.4f} s, plain {t_plain:.4f} s; dicts equal"
+    )
+    return elements, coords
+
+
+def same_dicts(got: list, ref: list) -> None:
+    check(len(got) == len(ref), "dicts: counts differ")
+    for g, r in zip(got, ref):
+        check(sorted(g) == sorted(r), "dicts: keys differ")
+        for key in r:
+            gv, rv = g[key], r[key]
+            pairs = [(gv[k], rv[k]) for k in rv] if isinstance(rv, dict) else [(gv, rv)]
+            for a, b in pairs:
+                check((a is None) == (b is None), f"dicts: {key} present in one only")
+                if b is None:
+                    continue
+                check(type(a) is type(b), f"dicts: {key} types differ")
+                if isinstance(b, np.ndarray):
+                    check(a.dtype == b.dtype and a.shape == b.shape, f"dicts: {key} arrays differ")
+                check(np.array_equal(a, b), f"dicts: {key} values differ")
+
+
+def phase_sweep_escalation(elements, coords) -> None:
+    """(b) The sweep's first 1,440 frames, then the same frames scaled by
+    1.35, through ``sweep_stream`` with a size gate: the second slab
+    grows the sampling sizes, the stream restarts, and its results equal
+    ``sweep_uniform``'s bit for bit; the delivery before the restart is
+    flagged not final, the last final."""
+    from pywindow_torch.config import DEFAULT_CONFIG
+    from pywindow_torch.ops.analysis import static_sizes
+    from pywindow_torch.parallel import batch
+
+    half = coords[:SWEEP_CHUNK]
+    grown = np.concatenate([half, half * 1.35])
+    maxd = batch.frame_max_diameters(elements, grown, DEVICE)
+    check(
+        static_sizes(float(maxd[:SWEEP_CHUNK].max()), DEFAULT_CONFIG)
+        != static_sizes(float(maxd.max()), DEFAULT_CONFIG),
+        "escalation: the scaled frames do not change the sampling sizes",
+    )
+    uniform: dict = {}
+    batch.LEARNED_CAPS._caps.clear()
+    batch.sweep_uniform(
+        elements, grown, maxd, lambda pos, res: uniform.update(zip(pos.tolist(), res)),
+        batch_size=SWEEP_CHUNK,
+    )
+
+    def decode_slab(lo, hi, out64=None, out32=None):
+        for out in (out64, out32):
+            if out is not None:
+                out[...] = grown[lo:hi]
+        return maxd[lo:hi]
+
+    gate: dict = {"final": False}
+    log: list = []
+    stream: dict = {}
+
+    def on_batch(pos, res):
+        log.append(bool(gate["final"]))
+        stream.update(zip(pos.tolist(), res))
+
+    batch.LEARNED_CAPS._caps.clear()
+    t0 = time.perf_counter()
+    batch.sweep_stream(
+        elements, len(grown), decode_slab, on_batch, batch_size=SWEEP_CHUNK, size_gate=gate
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(log[0] is False and log[-1] is True, f"escalation: size gate log {log}")
+    same_results("escalation", stream, uniform)
+    print(
+        f"escalation: {len(grown)} frames (the second {SWEEP_CHUNK} scaled by 1.35) restarted "
+        f"once, {len(log)} deliveries, gate {log}, in {seconds:.3f} s; equal to sweep_uniform bit for bit"
+    )
 
 
 def _windows_err(got, ref) -> float | None:
@@ -1661,6 +1898,37 @@ def device_profile(fn) -> tuple[float, float, int]:
     return wall, busy_us * 1e-6, len(spans)
 
 
+def warm_repeats(name: str, mol, repeats: int = 7) -> None:
+    """``repeats`` more warm ``full_analysis()`` runs of one molecule:
+    every wall time, their median and the passes of the cyclic garbage
+    collector's oldest generation during them (they walk every object
+    the earlier phases keep alive)."""
+    import gc
+
+    passes = {"n": 0}
+
+    def on_gc(phase: str, info: dict) -> None:
+        if phase == "start" and info["generation"] == 2:
+            passes["n"] += 1
+
+    times = []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mol.full_analysis()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        gc.callbacks.remove(on_gc)
+    print(
+        f"profile {name}: {repeats} warm runs, median {statistics.median(times) * 1e3:.3f} ms, "
+        f"each {json.dumps([round(t * 1e3, 3) for t in times])} ms; "
+        f"{passes['n']} oldest-generation gc passes, {len(gc.get_objects())} objects tracked"
+    )
+
+
 def phase_profile(pin: float) -> None:
     """Where a molecule's and a chunk's time goes: host stage spans of
     one warm PUDXES and REYMAL molecule, the device's busy share and
@@ -1687,6 +1955,7 @@ def phase_profile(pin: float) -> None:
             f"profile {name}: under torch.profiler {wall:.4f} s, device busy {busy:.4f} s "
             f"({100 * busy / wall:.1f}%), {launches} kernel launches"
         )
+        warm_repeats(name, mol)
     traj_frames = synth_history(SWEEP_FRAMES)
     import pywindow_torch as pt
 
@@ -1893,6 +2162,245 @@ def phase_clearance_grid() -> None:
     )
 
 
+# -- phase 11: the public surface; dbscan_spiral -------------------------------
+
+#: the surface phase's references: GOLD, and for REYMAL the pore_opt of
+#: BASELINE.md:29 (the reference's example_1.py); REYMAL's average
+#: diameter has no golden and is held to the card's full_analysis()
+SURFACE_GOLD = {
+    "PUDXES": {**GOLD["PUDXES"], "pore_opt": GOLD["PUDXES"]["pore"]},
+    "REYMAL": {**GOLD["REYMAL"], "pore_opt": 13.75674},
+}
+#: kernel name substrings of the six pipeline kernels in a trace
+TRACE_NAMES = {
+    "ray_exit": "ray_exit_kernel", "path_sweep": "path_sweep_kernel",
+    "dbscan": "dbscan_kernel", "lbfgsb_stable": "lbfgsb_kernel",
+    "nm_xy": "nm_xy_kernel", "fine_path": "fine_path_kernel",
+}
+
+
+def window_rays(u, elements, coords, centre, direction, seed: int = 0) -> np.ndarray:
+    """A window cluster as ``utilities.window_analysis`` takes it: the
+    rows of five open sampling rays (of the sampling sphere's radius)
+    within ~2 degrees of ``direction``, about the pore ``centre``."""
+    from pywindow_torch import tables
+
+    vdw = tables.ELEMENT_VDW[tables.element_ids(elements)]
+    length = u.max_dim(elements, coords - centre, device="cpu")[2] / 2.0
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(200):
+        v = direction / np.linalg.norm(direction) + rng.normal(scale=0.03, size=3)
+        res = u.vector_preanalysis(v / np.linalg.norm(v) * length, coords - centre, vdw)
+        if res is not None:
+            rows.append(res)
+        if len(rows) == 5:
+            break
+    check(len(rows) > 0, "window_analysis: no open ray towards the window")
+    return np.array(rows)
+
+
+#: the kernels each ``utilities`` call of the surface phase must launch
+SURFACE_KERNELS = {
+    "find_windows": PIPELINE_KERNELS,
+    "find_average_diameter": ("ray_exit",),
+    "opt_pore_diameter": ("lbfgsb_stable",),
+    "window_analysis": ("path_sweep", "lbfgsb_stable", "nm_xy"),
+}
+#: the command line in a subprocess: the function ``python -m
+#: pywindow_torch`` runs, then the process's launch counts on stderr
+CLI_RUNNER = (
+    "import json, sys\n"
+    "from pywindow_torch.__main__ import main\n"
+    "from pywindow_torch.ops import _cuda\n"
+    "main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps(dict(_cuda.LAUNCHES)), file=sys.stderr)\n"
+)
+
+
+def run_cli(*args: str) -> dict:
+    """Run the command line's ``args`` in a subprocess; check that it
+    launched the six pipeline kernels and return its launch counts."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    check(proc.returncode == 0, f"python -m pywindow_torch {args[0]}: {proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("LAUNCHES ")]
+    check(len(lines) == 1, f"CLI {args[0]}: no launch counts")
+    launches = json.loads(lines[0][len("LAUNCHES "):])
+    missing = [k for k in PIPELINE_KERNELS if launches.get(k, 0) == 0]
+    check(not missing, f"CLI {args[0]}: {missing} not launched")
+    return launches
+
+
+def surface_call(name: str, call: str, fn):
+    """One ``utilities`` call with the calling thread's launch counts set
+    to 0 before it; every kernel of :data:`SURFACE_KERNELS` launched
+    after it."""
+    from pywindow_torch.ops import _cuda
+
+    mine = _cuda.thread_launches()
+    mine.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    missing = [k for k in SURFACE_KERNELS[call] if mine[k] == 0]
+    check(not missing, f"surface {name}: {call} did not launch {missing}")
+    return out, {k: mine[k] for k in KERNELS if mine[k]}
+
+
+def phase_surface() -> None:
+    """The public surface on the card: ``utilities``' device functions on
+    PUDXES and REYMAL against the goldens, each through its own kernels,
+    and the scipy objectives against ``pore_diameter``; the shape
+    descriptors against ``utilities``' numpy ones, the command line's
+    two commands in subprocesses, and one molecule under
+    ``profiling.trace``."""
+    import tempfile
+
+    from pywindow_torch import profiling
+    from pywindow_torch import utilities as u
+
+    for name, gold in SURFACE_GOLD.items():
+        m = molecule(name)
+        el, co = m.elements, m.coordinates
+        errs, launched = {}, {}
+        t0 = time.perf_counter()
+        wins, launched["find_windows"] = surface_call(
+            name, "find_windows", lambda: u.find_windows(el, co)
+        )
+        check(wins is not None and len(wins[0]) == len(gold["windows"]), f"{name}: find_windows {wins}")
+        errs["find_windows"] = float(np.abs(np.sort(wins[0]) - np.sort(gold["windows"])).max())
+        avg, launched["find_average_diameter"] = surface_call(
+            name, "find_average_diameter", lambda: u.find_average_diameter(el, co)
+        )
+        avg_ref = gold["avg"] if "avg" in gold else m.full_analysis()["average_diameter"]
+        errs["find_average_diameter"] = abs(avg - avg_ref)
+        (d, _, centre), launched["opt_pore_diameter"] = surface_call(
+            name, "opt_pore_diameter", lambda: u.opt_pore_diameter(el, co)
+        )
+        errs["opt_pore_diameter"] = abs(d - gold["pore_opt"])
+        rows = window_rays(u, el, co, centre, wins[1][0] - centre)
+        got, launched["window_analysis"] = surface_call(
+            name, "window_analysis", lambda: u.window_analysis(rows, el, co - centre)
+        )
+        check(got is not None, f"{name}: window_analysis found no window")
+        errs["window_analysis"] = float(np.abs(np.asarray(gold["windows"]) - got[0]).min())
+        seconds = time.perf_counter() - t0
+        print(
+            f"surface {name}: utilities worst abs err {max(errs.values()):.3e} A (tol {TOL}) "
+            f"{json.dumps(errs)}, {seconds:.3f} s; launches per call {json.dumps(launched)}"
+        )
+        check(max(errs.values()) < TOL, f"surface {name}: error {max(errs.values())} >= {TOL}")
+        # the scipy objectives, on the card by default, against pore_diameter
+        pore = u.pore_diameter(el, co, com=centre)[0]
+        objectives = {
+            "correct_pore_diameter": (u.correct_pore_diameter(centre, el, co), -pore),
+            "optimise_xy": (u.optimise_xy(centre[:2], centre[2], el, co), -pore),
+            "optimise_z": (u.optimise_z(centre[2:], centre[0], centre[1], el, co), pore),
+        }
+        for key, (value, want) in objectives.items():
+            check(value == want, f"surface {name}: {key} {value} != pore_diameter's {want}")
+        print(f"surface {name}: the three objectives on the card equal pore_diameter's {pore!r} (tol 0)")
+
+    m = molecule("PUDXES")
+    desc = m.calculate_shape_descriptors()
+    ref = {
+        "asphericity": u.calc_asphericity(m.elements, m.coordinates),
+        "acylidricity": u.calc_acylidricity(m.elements, m.coordinates),
+        "relative_shape_anisotropy": u.calc_relative_shape_anisotropy(m.elements, m.coordinates),
+    }
+    diff = {k: abs(desc[k] - ref[k]) for k in ref}
+    check(all(math.isfinite(v) for v in desc.values()), f"shape descriptors {desc}")
+    check(max(diff.values()) <= 1e-4, f"shape descriptors differ from numpy's: {diff}")
+    print(f"surface shape descriptors (PUDXES, float64 on the card): {json.dumps(desc)}, vs numpy {json.dumps(diff)}")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        cli = run_cli("analyze", str(DATA / "PUDXES.xyz"), "-o", str(tmp / "pudxes.json"))
+        props = json.loads((tmp / "pudxes.json").read_text())
+        errs = gate_errors(props, GOLD["PUDXES"])
+        print(
+            f"surface CLI analyze PUDXES: worst abs err {max(errs.values()):.3e} A "
+            f"{json.dumps(errs)}, {time.perf_counter() - t0:.2f} s (subprocess), "
+            f"launches {json.dumps(cli)}"
+        )
+        check(max(errs.values()) < TOL, "CLI analyze: off the goldens")
+        t0 = time.perf_counter()
+        cli = run_cli(
+            "trajectory", str(HISTORY), "--forcefield", "OPLS", "--swap", "he=H",
+            "-o", str(tmp / "history.json"),
+        )
+        frames = json.loads((tmp / "history.json").read_text())
+        check(sorted(frames, key=int) == [str(i) for i in range(20)], f"CLI trajectory: frames {sorted(frames)}")
+        for key, mols in frames.items():
+            check_finite(f"CLI trajectory frame {key}", mols["0"])
+        print(
+            f"surface CLI trajectory: 20 frames, finite, {time.perf_counter() - t0:.2f} s "
+            f"(subprocess), launches {json.dumps(cli)}"
+        )
+
+        with profiling.trace(tmp / "trace"):
+            molecule("PUDXES").full_analysis()
+        files = list((tmp / "trace").glob("trace-*.json"))
+        check(len(files) == 1, f"trace: {len(files)} files")
+        kernels = {
+            e["name"] for e in json.loads(files[0].read_text())["traceEvents"]
+            if e.get("cat") == "kernel"
+        }
+        missing = [k for k, sub in TRACE_NAMES.items() if not any(sub in n for n in kernels)]
+        check(not missing, f"trace: no kernel event of {missing}")
+        print(
+            f"surface trace: {files[0].name}, {len(kernels)} distinct kernels, "
+            "the six pipeline kernels among them"
+        )
+
+
+def phase_dbscan_spiral(pin: float) -> None:
+    """``dbscan_spiral`` on the sweep chunk's ray endpoints over the whole
+    spiral (its candidate lists need the spiral's own order: the pore
+    centre, the pre-analysis and the coarse sweep of a 1,440-frame chunk
+    without the open-ray compaction), labels equal to the dbscan kernel's
+    on the same points, both timed; off any main path."""
+    import pywindow_torch as pt
+
+    from pywindow_torch.config import DEFAULT_CONFIG
+    from pywindow_torch.ops import cluster, cluster_kernels, geometry, rays
+    from pywindow_torch.ops.analysis import optimise_pore_centre_res, static_sizes
+    from pywindow_torch.ops.encoding import encode_batch
+
+    cfg = DEFAULT_CONFIG
+    fr = pt.DLPOLY(HISTORY).get_frames(list(range(20)), swap_atoms={"he": "H"}, forcefield="OPLS")
+    systems = [(m.system["elements"], m.system["coordinates"]) for m in fr.values()]
+    mols = encode_batch([systems[k % 20] for k in range(SWEEP_CHUNK)], device=DEVICE)
+    n_win, _, l1, _ = static_sizes(pin, cfg)
+    centre, _ = optimise_pore_centre_res(mols, cfg)
+    shifted = mols._replace(coords=mols.coords - centre[:, None, :])
+    radius = geometry.max_dim_value(shifted) / 2.0
+    points = rays.golden_spiral(n_win, radius)
+    eps = rays.mean_knn_eps_scaled(n_win, radius)
+    has_pore = geometry.pore_diameter(mols)[0] > 0.0
+    path = rays.path_analysis(points, shifted, cfg.increment, l1)
+    valid = (rays.preanalysis_open(points, shifted) & path.ok & has_pore[:, None]).contiguous()
+    nbr = cluster.spiral_neighbor_candidates(n_win)
+    args = (points, valid, eps, cfg.dbscan_min_samples, cfg.max_windows)
+    spiral, _ = cluster.dbscan_spiral(points, valid, eps, nbr, *args[3:])
+    kernel, _ = cluster_kernels.dbscan(*args)
+    check(torch.equal(spiral, kernel), "dbscan_spiral: labels differ from the dbscan kernel's")
+    t_spiral = time_ms(lambda: cluster.dbscan_spiral(points, valid, eps, nbr, *args[3:]))
+    t_kernel = time_ms(lambda: cluster_kernels.dbscan(*args))
+    dev_kernel = device_ms(lambda: cluster_kernels.dbscan_labels_cuda(*args))
+    print(
+        f"dbscan_spiral: {SWEEP_CHUNK} frames x {n_win} spiral points "
+        f"({int(valid.sum())} valid, {nbr.shape[1]} candidates a point), {points.dtype}: "
+        f"dbscan_spiral (torch operations) {t_spiral:.4f} ms (events); the dbscan kernel on the "
+        f"same points {t_kernel:.4f} ms (events), {dev_kernel:.4f} ms (device, CUDA graph); "
+        "labels equal"
+    )
+
+
 def main() -> None:
     smi = phase_card()
     phase_build()
@@ -1906,8 +2414,11 @@ def main() -> None:
     with main_path("batched gate", calls):
         phase_batched_gate()
     with main_path("sweep", calls):
-        traj, pin = phase_sweep(calls)
+        traj, maxd = phase_sweep(calls)
+    pin = float(maxd.max())
     phase_sweep_samples(traj, pin)
+    elements, coords = phase_sweep_routes(traj, maxd)
+    phase_sweep_escalation(elements, coords)
     phase_profile(pin)
     with main_path("periodic system", calls):
         phase_periodic_system()
@@ -1918,6 +2429,9 @@ def main() -> None:
 
     with main_path("clearance grid", calls, kernels=("clearance_min",) + HELPER_KERNELS):
         phase_clearance_grid()
+    with main_path("surface", calls):
+        phase_surface()
+    phase_dbscan_spiral(pin)
 
     per_call = {json.dumps(delta, sort_keys=True) for _, _, delta, _ in calls}
     sizes = sorted({b for _, b, _, _ in calls})

@@ -9,9 +9,11 @@ the periodic rebuild and the split into molecules (``rebuild_system``,
 :mod:`pywindow_torch.ops.rebuild`), the whole system as one molecule
 (``system_to_molecule``), the per-molecule analysis (``full_analysis``,
 the ``calculate_*`` getters, and ``analyze_molecules``, one batch of
-every molecule of the system) and the writers.  Every analysis runs on
-the card unless the caller passes ``device="cpu"``.  Shape descriptors
-and the principal-axes alignment are not ported yet (ROADMAP Q1.11).
+every molecule of the system), the shape descriptors and the
+principal-axes alignment, rdkit molecules (``load_rdkit_mol``) and the
+writers.  Every analysis runs on the card unless the caller passes
+``device="cpu"``.  ``Molecule._update`` of the reference
+(molecular.py:548-551) is not provided, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from pywindow_torch import tables
-from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
+from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig, resolve_device
 from pywindow_torch.io.forcefield import decipher_all
 from pywindow_torch.io.inputs import Input
 from pywindow_torch.io.outputs import Output, to_list
@@ -60,6 +62,13 @@ class Molecule:
         self.device = device
         self.properties: dict = {"no_of_atoms": self.no_of_atoms}
         self._analysed = False
+
+    @classmethod
+    def load_rdkit_mol(cls, mol, system_name: str = "rdkit", mol_id: int = 0) -> Molecule:
+        """A molecule from an rdkit ``Mol`` (or any object with its atom
+        and conformer accessors, see
+        :func:`~pywindow_torch.io.inputs.rdkit_like_mol`)."""
+        return cls(Input().load_rdkit_mol(mol), system_name, mol_id)
 
     def full_analysis(
         self,
@@ -163,6 +172,39 @@ class Molecule:
         self._ensure_analysis()
         return self.properties["windows"]["diameters"]
 
+    def _align_to_principal_axes(self, align_molsys: bool = False) -> None:
+        """Rotate the molecule onto its principal axes
+        (:func:`pywindow_torch.utilities.align_principal_ax`; the
+        reference assigned to ``coordinates[0]``, molecular.py:204-213)."""
+        if align_molsys:
+            raise NotImplementedError
+        from pywindow_torch.utilities import align_principal_ax
+
+        self.coordinates, _ = align_principal_ax(self.elements, self.coordinates)
+        self.mol["coordinates"] = self.coordinates
+        self.aligned_to_principal_axes = True
+
+    def calculate_shape_descriptors(self, device: torch.device | str | None = None) -> dict:
+        """Asphericity, acylindricity and relative shape anisotropy from
+        the inertia tensor's eigenvalues (reference: utilities.py:626-650),
+        computed in float64 on ``device`` (default: this molecule's);
+        stored under ``shape_descriptors``."""
+        from pywindow_torch.ops import geometry
+        from pywindow_torch.ops.encoding import encode
+
+        mol = encode(
+            self.elements, self.coordinates, dtype=torch.float64,
+            device=resolve_device(self.device if device is None else device),
+        )
+        eig = geometry.sorted_eigenvalues(geometry.inertia_tensor(mol))
+        descriptors = {
+            "asphericity": float(geometry.asphericity(eig)),
+            "acylidricity": float(geometry.acylindricity(eig)),
+            "relative_shape_anisotropy": float(geometry.relative_shape_anisotropy(eig)),
+        }
+        self.properties["shape_descriptors"] = descriptors
+        return descriptors
+
     def shift_to_origin(self) -> None:
         """Translate so the COM coincides with the origin
         (reference: molecular.py:354-366).  Diameters do not change;
@@ -254,6 +296,13 @@ class MolecularSystem:
         obj.filename = filepath.name
         obj.system_id = obj.filename.split(".")[0]
         obj.name = obj.system_id
+        return obj
+
+    @classmethod
+    def load_rdkit_mol(cls, mol) -> MolecularSystem:
+        """A system from an rdkit ``Mol`` (or an object with its accessors)."""
+        obj = cls()
+        obj.system = obj._Input.load_rdkit_mol(mol)
         return obj
 
     @classmethod

@@ -20,6 +20,12 @@ capacity.
 
 :data:`CALLS` counts the library calls by function, so a run can show
 that it went through the native code.
+
+:func:`fastprops` builds and imports the second native module,
+``_native/fastprops.cpp``: a CPython extension that turns a packed
+result block into the reference's properties dicts (it needs the Python
+and numpy headers, so it is a module of its own, built the same way and
+raising the same error when it cannot be built).
 """
 
 from __future__ import annotations
@@ -280,18 +286,36 @@ def map_history(buf: np.ndarray, cap_frames: int):
     return starts[:got].copy(), ends[:got].copy(), int(header_end[0]), int(warn_flags[0])
 
 
-def _decode_frames_batch(name, buf, starts, ends, n_atoms, ref_ids, extra=()):
+def _decode_frames_batch(
+    name, buf, starts, ends, n_atoms, ref_ids, extra=(), *,
+    vdw=None, maxd=None, out64=None, out32=None,
+):
     n_threads = min(8, os.cpu_count() or 1)
     f = len(starts)
-    xyz = np.empty((f, n_atoms, 3), dtype=np.float64)
+    for out, dtype in ((out64, np.float64), (out32, np.float32), (maxd, np.float64)):
+        if out is not None and (out.dtype != dtype or not out.flags["C_CONTIGUOUS"]):
+            msg = f"{name}: output slabs must be C-contiguous {dtype.__name__} arrays"
+            raise TypeError(msg)
+    if any(o is not None and o.shape != (f, n_atoms, 3) for o in (out64, out32)):
+        msg = f"{name}: output slabs must have shape ({f}, {n_atoms}, 3)"
+        raise ValueError(msg)
+    if (vdw is None) != (maxd is None):
+        msg = f"{name}: vdw and maxd go together"
+        raise ValueError(msg)
+    # with only the float32 slab asked for, the library parses each frame
+    # into a one-frame scratch and writes the float32 copy alone
+    xyz = out64 if out64 is not None or out32 is not None else np.empty(
+        (f, n_atoms, 3), dtype=np.float64
+    )
     ids_match = np.zeros(1, dtype=np.int64)
     got = getattr(lib(), name)(
         buf.ctypes.data_as(ctypes.c_void_p),
         _ptr(np.ascontiguousarray(starts, dtype=np.int64), ctypes.c_int64),
         _ptr(np.ascontiguousarray(ends, dtype=np.int64), ctypes.c_int64),
         f, *extra, n_atoms, ref_ids, _ptr(xyz, ctypes.c_double),
-        _ptr(None, ctypes.c_float), _ptr(None, ctypes.c_double),
-        _ptr(None, ctypes.c_double), n_threads, _ptr(ids_match, ctypes.c_int64),
+        _ptr(out32, ctypes.c_float),
+        _ptr(None if vdw is None else _f64(vdw), ctypes.c_double),
+        _ptr(maxd, ctypes.c_double), n_threads, _ptr(ids_match, ctypes.c_int64),
     )
     CALLS[name.removeprefix("pw_")] += 1
     if got < 0:
@@ -300,25 +324,107 @@ def _decode_frames_batch(name, buf, starts, ends, n_atoms, ref_ids, extra=()):
 
 
 def decode_dlpoly_frames_batch(
-    buf, starts, ends, keytrj: int, has_cell: bool, n_atoms: int, ref_ids: bytes
+    buf, starts, ends, keytrj: int, has_cell: bool, n_atoms: int, ref_ids: bytes, **slabs
 ):
     """Whole-sweep HISTORY decode on up to 8 threads (the ctypes call
     releases the GIL) -> (coordinates (F, N, 3) float64, ids_match),
     or None when a frame does not parse.  ``ref_ids`` is frame 0's id
     block (``ids.astype('S9').tobytes()``); ``ids_match`` says whether
-    every frame's ids equal it, which a shared element list needs."""
+    every frame's ids equal it, which a shared element list needs.
+
+    The keyword outputs let one pass fill a sweep's own slabs (the
+    streamed sweep's decoder thread): ``out64`` / ``out32`` (F, N, 3)
+    float64 / float32 slabs to write the coordinates into (the float64
+    one is returned; with ``out32`` alone None is), and ``maxd`` (F,)
+    float64 filled with each frame's vdW-corrected maximum diameter
+    under the per-atom radii ``vdw`` (N,), bit for bit
+    :func:`pywindow_torch.ops.analysis.max_dim_host`."""
     return _decode_frames_batch(
         "pw_decode_dlpoly_frames_batch", buf, starts, ends, n_atoms, ref_ids,
-        extra=(int(keytrj), int(bool(has_cell))),
+        extra=(int(keytrj), int(bool(has_cell))), **slabs,
     )
 
 
-def decode_xyz_frames_batch(buf, starts, ends, n_atoms, ref_ids):
+def decode_xyz_frames_batch(buf, starts, ends, n_atoms, ref_ids, **slabs):
     """Whole-sweep XYZ trajectory decode; see :func:`decode_dlpoly_frames_batch`."""
-    return _decode_frames_batch("pw_decode_xyz_frames_batch", buf, starts, ends, n_atoms, ref_ids)
+    return _decode_frames_batch(
+        "pw_decode_xyz_frames_batch", buf, starts, ends, n_atoms, ref_ids, **slabs
+    )
 
 
-def decode_pdb_frames_batch(buf, starts, ends, n_atoms, ref_ids):
+def decode_pdb_frames_batch(buf, starts, ends, n_atoms, ref_ids, **slabs):
     """Whole-sweep PDB trajectory decode (CRYST1 cells are not returned);
     see :func:`decode_dlpoly_frames_batch`."""
-    return _decode_frames_batch("pw_decode_pdb_frames_batch", buf, starts, ends, n_atoms, ref_ids)
+    return _decode_frames_batch(
+        "pw_decode_pdb_frames_batch", buf, starts, ends, n_atoms, ref_ids, **slabs
+    )
+
+
+# -- the native property-dict converter ------------------------------------
+
+FASTPROPS_SOURCE = SOURCE.parent / "fastprops.cpp"
+
+
+def _fastprops_cmd(out: str) -> list[str]:
+    import sysconfig
+
+    return [
+        CXX, "-O3", "-shared", "-fPIC", "-std=c++17",
+        "-I", sysconfig.get_paths()["include"], "-I", np.get_include(),
+        "-o", out, str(FASTPROPS_SOURCE),
+    ]
+
+
+@functools.cache
+def fastprops():
+    """The ``_pw_fastprops`` CPython extension (``_native/fastprops.cpp``,
+    the bulk converter of packed results into properties dicts), built
+    at first use with ``g++`` against this interpreter's and numpy's
+    headers into :data:`BUILD_DIR`, named by a hash of its source and
+    command, as :func:`lib` is; raises :class:`NativeBuildError` when it
+    cannot be built or loaded (no numpy fallback)."""
+    import importlib.util
+    import sysconfig
+
+    key = hashlib.sha1(
+        FASTPROPS_SOURCE.read_bytes()
+        + " ".join(_fastprops_cmd("")).encode()
+        + sysconfig.get_config_var("EXT_SUFFIX").encode()
+    ).hexdigest()[:16]
+    so = BUILD_DIR / f"_pw_fastprops-{key}.so"
+    if not so.is_file():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", prefix="pw_fastprops_", dir=so.parent)
+        os.close(fd)
+        cmd = _fastprops_cmd(tmp)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as exc:
+            pathlib.Path(tmp).unlink(missing_ok=True)
+            msg = f"pywindow_torch.native: {' '.join(cmd)} failed: {exc}"
+            raise NativeBuildError(msg) from exc
+        if proc.returncode != 0:
+            pathlib.Path(tmp).unlink(missing_ok=True)
+            msg = (
+                f"pywindow_torch.native: {' '.join(cmd)} exited with "
+                f"{proc.returncode}:\n{proc.stdout}{proc.stderr}"
+            )
+            raise NativeBuildError(msg)
+        os.replace(tmp, so)
+    try:
+        spec = importlib.util.spec_from_file_location("_pw_fastprops", so)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    except (ImportError, OSError) as exc:
+        msg = f"pywindow_torch.native: cannot load {so}: {exc}"
+        raise NativeBuildError(msg) from exc
+    return mod
+
+
+def props_dicts(flat: np.ndarray, max_windows: int):
+    """The converter on a packed (B, 21 + 6 W) float32 or float64 block
+    -> (dicts, rows whose refinement failed, rows with a negative window
+    diameter); see :func:`pywindow_torch.ops.analysis.to_properties_dicts_bulk`."""
+    got = fastprops().props_dicts(np.ascontiguousarray(flat), int(max_windows))
+    CALLS["props_dicts"] += 1
+    return got

@@ -8,8 +8,11 @@ never at import, into ``<checkout>/build/pywindow_torch/`` (listed in
 ``.gitignore``); ``load`` rebuilds when a source changes.
 
 :data:`LAUNCHES` counts kernel launches by kernel name: each wrapper
-adds one where it launches its kernel and nowhere else, so a caller can
-show that a run went through the kernels.
+adds one (:func:`count_launch`) where it launches its kernel and nowhere
+else, so a caller can show that a run went through the kernels.  The
+count is taken under a lock, since a sweep launches from its dispatching
+thread and its collector thread at once; :func:`thread_launches` holds
+the calling thread's own counts.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import collections
 import functools
 import pathlib
+import threading
 
 import torch
 
@@ -38,6 +42,23 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false")
 
 #: kernel launches by kernel name (see the module docstring).
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCH_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def thread_launches() -> collections.Counter:
+    """The calling thread's kernel launches by kernel name."""
+    if not hasattr(_THREAD, "launches"):
+        _THREAD.launches = collections.Counter()
+    return _THREAD.launches
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` (in :data:`LAUNCHES` and in
+    the calling thread's :func:`thread_launches`)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    thread_launches()[name] += 1
 
 
 @functools.cache

@@ -70,11 +70,15 @@ class FullAnalysis(NamedTuple):
 
 
 def optimise_pore_centre_res(
-    mol: MolArrays, cfg: AnalysisConfig = DEFAULT_CONFIG
+    mol: MolArrays,
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    start: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The optimised pore centres (B, 3) of a batch (L-BFGS-B from the
     COM within a ±pore_r box; reference: utilities.py:400-426) and the
     flags (B,) that the (possibly fast) iteration budget stopped them.
+    ``start`` = (x0, lower, upper), each (B, 3), replaces the COM start
+    and its box.
 
     Runs in :data:`~pywindow_torch.config.OPT_DTYPE`: the stable driver,
     the ``lbfgsb_stable`` kernel on the card, for a float32 pipeline;
@@ -84,13 +88,16 @@ def optimise_pore_centre_res(
     opt_maxiter, _ = effective_budgets(cfg)
     stable = pore_opt_mode(mol.coords.dtype) == "stable"
     omol = mol.to(OPT_DTYPE)
-    com = center_of_mass(omol)
-    pd0, _ = pore_diameter(omol, com=com)
-    pore_r = (pd0 / 2.0)[:, None]
-    x0, lower, upper = com, com - pore_r, com + pore_r
+    if start is None:
+        com = center_of_mass(omol)
+        pd0, _ = pore_diameter(omol, com=com)
+        pore_r = (pd0 / 2.0)[:, None]
+        x0, lower, upper = com, com - pore_r, com + pore_r
+    else:
+        x0, lower, upper = (t.to(OPT_DTYPE) for t in start)
     if stable:
         x, _, _, _, capped = lbfgsb_stable_flat(
-            omol.coords, omol.vdw, torch.zeros_like(com), x0, lower, upper,
+            omol.coords, omol.vdw, torch.zeros_like(x0), x0, lower, upper,
             emb=EMB_XYZ, sign=-1.0, maxiter=opt_maxiter,
         )
     else:
@@ -318,6 +325,14 @@ def analyze(
     return props
 
 
+_WARN_FAILED = (
+    "one of the analysed windows has returned as None (refinement failed); see manual"
+)
+_WARN_NEGATIVE = (
+    "one of the analysed windows has a vdW-corrected diameter smaller than 0; see manual"
+)
+
+
 def to_properties_dict(res: FullAnalysis) -> dict:
     """Results in the reference properties schema (keys as produced by
     molecular.py:215-352), plus the ``_open_cap_overflow``,
@@ -333,15 +348,9 @@ def to_properties_dict(res: FullAnalysis) -> dict:
             "centre_of_mass": np.asarray(wins.centers)[valid],
         }
         if bool(np.any(np.asarray(wins.refine_failed))):
-            logger.warning(
-                "one of the analysed windows has returned as None "
-                "(refinement failed); see manual"
-            )
+            logger.warning(_WARN_FAILED)
         if windows["diameters"].size and np.any(windows["diameters"] < 0):
-            logger.warning(
-                "one of the analysed windows has a vdW-corrected diameter "
-                "smaller than 0; see manual"
-            )
+            logger.warning(_WARN_NEGATIVE)
     out = {
         "centre_of_mass": np.asarray(res.centre_of_mass),
         "maximum_diameter": {
@@ -375,9 +384,29 @@ def to_properties_dict(res: FullAnalysis) -> dict:
 
 def to_properties_dicts_bulk(flat: np.ndarray, max_windows: int) -> list[dict]:
     """``to_properties_dict(unpack_results(row))`` for every row of a
-    (B, packed) result block, with the scalar columns converted once
-    (counterpart of ``pywindow_tpu.ops.analysis.to_properties_dicts_bulk``
-    and of its native converter ``_native/fastprops.cpp``)."""
+    (B, packed) float32 or float64 host block, through the native
+    converter ``_native/fastprops.cpp`` (counterpart of
+    ``pywindow_tpu.ops.analysis.to_properties_dicts_bulk``): the same
+    dicts, dtypes and window warnings as
+    :func:`to_properties_dicts_bulk_plain`, its plain version.  The
+    dicts' centre arrays are views into ``flat``, so the caller passes
+    a block that nothing writes afterwards.  Raises
+    :class:`~pywindow_torch.native.NativeBuildError` when the converter
+    cannot be built."""
+    from pywindow_torch import native
+
+    out, warn_failed, warn_negative = native.props_dicts(flat, max_windows)
+    for _ in warn_failed:
+        logger.warning(_WARN_FAILED)
+    for _ in warn_negative:
+        logger.warning(_WARN_NEGATIVE)
+    return out
+
+
+def to_properties_dicts_bulk_plain(flat: np.ndarray, max_windows: int) -> list[dict]:
+    """The plain version of :func:`to_properties_dicts_bulk`:
+    ``to_properties_dict(unpack_results(row))`` for every row, in
+    Python, with the scalar columns converted once."""
     w = max_windows
     off = 21
     b = flat.shape[0]
@@ -402,15 +431,9 @@ def to_properties_dicts_bulk(flat: np.ndarray, max_windows: int) -> list[dict]:
             v = valid[i]
             windows = {"diameters": diam[i, v], "centre_of_mass": cent[i, v]}
             if fail_any[i]:
-                logger.warning(
-                    "one of the analysed windows has returned as None "
-                    "(refinement failed); see manual"
-                )
+                logger.warning(_WARN_FAILED)
             if neg_any[i]:
-                logger.warning(
-                    "one of the analysed windows has a vdW-corrected "
-                    "diameter smaller than 0; see manual"
-                )
+                logger.warning(_WARN_NEGATIVE)
         props = {
             "centre_of_mass": com[i],
             "maximum_diameter": {

@@ -106,8 +106,8 @@ def clearance_min_launch(
     work = clearance_workspace(q, n, dtype, device)
     _cuda.load_extension().clearance_min(probes, coords, vdw, out, *work)
     for key in HELPER_KERNELS:
-        _cuda.LAUNCHES[key] += 1
-    _cuda.LAUNCHES["clearance_min"] += 1
+        _cuda.count_launch(key)
+    _cuda.count_launch("clearance_min")
     return out, work
 
 

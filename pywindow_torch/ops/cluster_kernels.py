@@ -132,7 +132,7 @@ def dbscan_labels_cuda(
         points, valid, eps, labels, int(min_samples), int(max_clusters),
         dbscan_threads(b, _cuda.sm_count(device)), route == "stored", scratch,
     )
-    _cuda.LAUNCHES["dbscan"] += 1
+    _cuda.count_launch("dbscan")
     return labels
 
 

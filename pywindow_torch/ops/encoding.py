@@ -76,6 +76,21 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def encode(
+    elements: np.ndarray,
+    coordinates: np.ndarray,
+    pad_to: int | None = None,
+    dtype: torch.dtype | None = None,
+    *,
+    device: torch.device | str,
+) -> MolArrays:
+    """One molecule's padded fields on ``device``, without a batch axis
+    (counterpart of ``pywindow_tpu.ops.encoding.encode``, encoding.py:79)."""
+    return MolArrays(
+        *(t[0] for t in encode_batch([(elements, coordinates)], pad_to, dtype, device=device))
+    )
+
+
 def encode_batch(
     systems: list[tuple[np.ndarray, np.ndarray]],
     pad_to: int | None = None,

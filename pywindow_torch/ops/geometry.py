@@ -153,3 +153,55 @@ def pore_diameter(
 def sphere_volume(radius: torch.Tensor) -> torch.Tensor:
     """4/3 pi r^3 (reference: utilities.py:429-431)."""
     return 4.0 / 3.0 * math.pi * radius**3
+
+
+# -- shape descriptors (reference: utilities.py:434-650) ---------------------
+
+
+def gyration_tensor(mol: MolArrays) -> torch.Tensor:
+    """Centre-of-mass-corrected gyration tensor / N (reference:
+    utilities.py:461-495): (..., 3, 3)."""
+    com = center_of_mass(mol)
+    x = torch.where(mol.mask[..., None], mol.coords - com[..., None, :], 0.0)
+    n = mol.mask.sum(-1).to(x.dtype)
+    return torch.einsum("...ni,...nj->...ij", x, x) / n[..., None, None]
+
+
+def inertia_tensor(mol: MolArrays) -> torch.Tensor:
+    """Mass-weighted inertia tensor / N: (..., 3, 3).
+
+    As in the JAX package (geometry.py:249-275): the reference's
+    division by the atom count and its missing centre-of-mass
+    correction are kept (utilities.py:498-529); its broadcasting bug,
+    which summed every mass against every coordinate, is not.
+    """
+    x = torch.where(mol.mask[..., None], mol.coords, 0.0)
+    m = torch.where(mol.mask, mol.mass, 0.0)
+    r2 = sq_norm3(x)
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    t = (m * r2).sum(-1)[..., None, None] * eye - torch.einsum("...n,...ni,...nj->...ij", m, x, x)
+    return t / mol.mask.sum(-1).to(x.dtype)[..., None, None]
+
+
+def sorted_eigenvalues(tensor: torch.Tensor) -> torch.Tensor:
+    """Descending eigenvalues of symmetric 3 x 3 tensors (..., 3)."""
+    return torch.linalg.eigvalsh(tensor).flip(-1)
+
+
+def asphericity(eigvals_desc: torch.Tensor) -> torch.Tensor:
+    """Asphericity from descending eigenvalues (reference: utilities.py:626)."""
+    return eigvals_desc[..., 0] - 0.5 * (eigvals_desc[..., 1] + eigvals_desc[..., 2])
+
+
+def acylindricity(eigvals_desc: torch.Tensor) -> torch.Tensor:
+    """Acylindricity from descending eigenvalues (reference: utilities.py:633)."""
+    return eigvals_desc[..., 1] - eigvals_desc[..., 2]
+
+
+def relative_shape_anisotropy(eigvals_desc: torch.Tensor) -> torch.Tensor:
+    """Relative shape anisotropy in [0, 1] from descending eigenvalues
+    (reference: utilities.py:640)."""
+    e = eigvals_desc
+    s = e.sum(-1)
+    pair = e[..., 0] * e[..., 1] + e[..., 0] * e[..., 2] + e[..., 1] * e[..., 2]
+    return 1.0 - 3.0 * pair / (s * s)

@@ -178,7 +178,7 @@ def lbfgsb_stable_flat_cuda(
         float(sign), int(maxiter), int(m), int(maxls), float(pgtol),
         float(factr), float(fd_step), *lane_launch(b, n, _cuda.sm_count(device)),
     )
-    _cuda.LAUNCHES["lbfgsb_stable"] += 1
+    _cuda.count_launch("lbfgsb_stable")
     return x, fun, nit, conv, capped
 
 

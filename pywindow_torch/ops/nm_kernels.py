@@ -217,7 +217,7 @@ def nm_xy_flat_cuda(
         coords, vdw, zanchor, half, active, xy, f, capped, iterations, int(brute_ns),
         int(maxiter), float(xatol), float(fatol), lane_threads(lanes, n, _cuda.sm_count(device)),
     )
-    _cuda.LAUNCHES["nm_xy"] += 1
+    _cuda.count_launch("nm_xy")
     return xy, f, capped
 
 

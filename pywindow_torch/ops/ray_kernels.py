@@ -140,7 +140,7 @@ def ray_exit_cuda(
     _cuda.load_extension().ray_exit(
         unit, rel, vdw, origin, any_front, max_exit, bool(want_exit), order
     )
-    _cuda.LAUNCHES["ray_exit"] += 1
+    _cuda.count_launch("ray_exit")
     return any_front, max_exit
 
 
@@ -385,7 +385,7 @@ def path_sweep_cuda(
         vectors, chunks, coords, vdw, ok, pos, cmin, int(max_steps),
         sweep_rays_per_warp(b, p, _cuda.sm_count(vectors.device)),
     )
-    _cuda.LAUNCHES["path_sweep"] += 1
+    _cuda.count_launch("path_sweep")
     return ok, pos, cmin
 
 
@@ -501,7 +501,7 @@ def fine_path_cuda(
     _cuda.load_extension().fine_path(
         vectors, chunks, coords, vdw, active, ok, pos, cmin, int(max_steps)
     )
-    _cuda.LAUNCHES["fine_path"] += 1
+    _cuda.count_launch("fine_path")
     return ok, pos, cmin
 
 

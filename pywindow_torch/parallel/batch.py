@@ -4,10 +4,13 @@
 A chunk of B molecules runs the whole pipeline as one batch with a
 leading frame axis (:func:`pywindow_torch.ops.analysis.run_pipeline`):
 each kernel sees all of the chunk's frames in one launch, so the number
-of launches per chunk does not depend on B.  Chunks run one after another (a synchronous loop;
-streams and pinned buffers are later work), sized to the device's free
-memory by :func:`max_safe_batch`.  Molecules whose run outgrew a static
-cap, or an optimiser's fast budget, re-run escalated
+of launches per chunk does not depend on B.  Chunks are sized to the
+device's free memory by :func:`max_safe_batch`.  A sweep over frames of
+one element list (:func:`sweep_stream`, :func:`sweep_uniform`) decodes
+slab k+1 on a thread while the device runs chunk k, moves each chunk's
+coordinates from pinned host slabs on a side stream, and fetches and
+converts its results on a collector thread.  Molecules whose run
+outgrew a static cap, or an optimiser's fast budget, re-run escalated
 (:func:`retry_saturated_windows`); a sweep whose chunks mostly escalate
 opens later chunks, and later sweeps of the same system, at the
 escalated caps (:data:`LEARNED_CAPS`).
@@ -18,11 +21,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from pywindow_torch import tables
+from pywindow_torch import profiling, tables
 from pywindow_torch.config import (
     DEFAULT_CONFIG,
     MAX_WINDOWS_CEILING,
@@ -201,15 +205,12 @@ def dispatch_batch(
     return (_analysis.run_pipeline(mols, sizes, cfg), len(systems), cfg, reference_max_diameter)
 
 
-def collect_batch(handle) -> list[dict]:
-    """Fetch a dispatched batch (one device-to-host transfer) and convert
-    it to properties dicts (with the escalation markers still in)."""
-    flat_dev, b, cfg, _ = handle
-    with stage("sweep_fetch"):
-        flat = flat_dev.cpu().numpy()
+def _to_dicts(flat: np.ndarray, cfg: AnalysisConfig) -> list[dict]:
+    """A fetched block's properties dicts, with the escalation markers
+    still in, and the counters they feed."""
     with stage("sweep_to_dicts"):
-        results = to_properties_dicts_bulk(flat[:b], cfg.max_windows)
-    METRICS.count("molecules_analysed", b)
+        results = to_properties_dicts_bulk(flat, cfg.max_windows)
+    METRICS.count("molecules_analysed", len(results))
     METRICS.count(
         "windows_found",
         sum(
@@ -218,6 +219,15 @@ def collect_batch(handle) -> list[dict]:
         ),
     )
     return results
+
+
+def collect_batch(handle) -> list[dict]:
+    """Fetch a dispatched batch (one device-to-host transfer) and convert
+    it to properties dicts (with the escalation markers still in)."""
+    flat_dev, b, cfg, _ = handle
+    with stage("sweep_fetch"):
+        flat = flat_dev[:b].cpu().numpy()
+    return _to_dicts(flat, cfg)
 
 
 def analyze_batch(
@@ -287,8 +297,9 @@ def sweep_uniform(
     device: torch.device | str = "cuda",
 ) -> None:
     """Full-analysis sweep over frames (F, N, 3) that share one element
-    list, in chunks of ``batch_size`` frames (default: the largest
-    memory-safe batch).
+    list and are decoded already, in chunks of ``batch_size`` frames
+    (default: the largest memory-safe batch), through the loop of
+    :func:`sweep_stream` with the sizes known up front (no escalation).
 
     The per-atom fields move to the device once; only each chunk's
     coordinates move per chunk.  ``maxd_per_frame`` (F,) are the frames'
@@ -296,16 +307,122 @@ def sweep_uniform(
     unless ``reference_max_diameter`` is given.  ``on_batch(positions,
     results)`` receives each chunk's frame positions and dicts, in order.
     """
-    f_total, n, _ = coords.shape
-    if f_total == 0:
+    if coords.shape[0] == 0:
+        return
+    maxd = np.asarray(maxd_per_frame, dtype=np.float64)
+
+    def decode_slab(lo, hi, out64=None, out32=None):
+        for out in (out64, out32):
+            if out is not None:
+                out[...] = coords[lo:hi]
+        return maxd[lo:hi]
+
+    _sweep_frames(
+        elements, len(coords), decode_slab, on_batch, cfg, batch_size,
+        ref=None if reference_max_diameter is None else float(reference_max_diameter),
+        bound_maxd=float(np.max(maxd)), device=device,
+        preloaded=coords if coords.dtype == np.float64 else None,
+    )
+
+
+def sweep_stream(
+    elements: np.ndarray,
+    n_frames: int,
+    decode_slab,
+    on_batch,
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    batch_size: int | None = None,
+    reference_max_diameter: float | None = None,
+    size_gate: dict | None = None,
+    device: torch.device | str = "cuda",
+) -> None:
+    """Overlapped decode and device sweep over ``n_frames`` frames that
+    share one element list (counterpart of
+    ``pywindow_tpu.parallel.batch.sweep_stream``).
+
+    ``decode_slab(lo, hi, out64=None, out32=None) -> maxd (hi - lo,)``
+    decodes frame positions [lo, hi) into the given (hi - lo, N, 3)
+    float64 or float32 slab (the sweep's own store in its pipeline
+    dtype) and returns their exact maximum diameters; it may release the
+    GIL, since slab k+1 decodes on a thread while the device runs chunk
+    k.  The sampling pin is the largest maximum diameter decoded so far
+    (or ``reference_max_diameter``); when a later slab makes the discrete
+    sampling sizes grow, the sweep restarts over the decoded frames at
+    the new sizes and ``on_batch`` receives their results again,
+    overwriting.  The results are those of :func:`sweep_uniform` on the
+    same frames, which runs the same loop with the sizes known up front.
+
+    ``size_gate``: a dict whose ``"final"`` key the sweep keeps true
+    exactly while no escalation can come any more (every frame decoded,
+    the pass at the final sizes), so a caller can hold back checkpoints
+    until then.
+    """
+    _sweep_frames(
+        elements, n_frames, decode_slab, on_batch, cfg, batch_size,
+        ref=None if reference_max_diameter is None else float(reference_max_diameter),
+        bound_maxd=None, device=device, size_gate=size_gate,
+    )
+
+
+#: chunks dispatched ahead of the one being collected (the JAX package's
+#: depth, pywindow_tpu/parallel/batch.py:165)
+_PIPELINE_DEPTH = 3
+#: frames decoded before the first dispatch when no batch size is given
+_FIRST_SLAB = 4320
+
+
+def _fetch(flat_dev: torch.Tensor, done, stream) -> np.ndarray:
+    """A chunk's packed results on the host: on the card one copy on
+    ``stream`` once the chunk's ``done`` event has fired (a later chunk's
+    work does not hold it up), into host memory that nothing reuses."""
+    if stream is None:
+        return flat_dev.numpy()
+    with torch.cuda.stream(stream):
+        stream.wait_event(done)
+        return flat_dev.to("cpu").numpy()
+
+
+def _sweep_frames(
+    elements: np.ndarray,
+    n_frames: int,
+    decode_slab,
+    on_batch,
+    cfg: AnalysisConfig,
+    batch_size: int | None,
+    ref: float | None,
+    bound_maxd: float | None,
+    device: torch.device | str,
+    size_gate: dict | None = None,
+    preloaded: np.ndarray | None = None,
+) -> None:
+    """The chunk loop of :func:`sweep_uniform` and :func:`sweep_stream`
+    (counterpart of ``pywindow_tpu.parallel.batch._sweep_frames``).
+
+    ``ref``: the sampling pin, or None for the largest maximum diameter
+    decoded so far.  ``bound_maxd``: the frames' largest maximum
+    diameter when it is known (sizes final, no escalation checks), or
+    None to follow the decoded maximum and restart when the sizes grow.
+    ``preloaded``: the decoded (n_frames, N, 3) float64 frames, the
+    retries' source (and the store itself on a float64 pipeline).
+
+    One thread decodes slab k+1 (``decode_slab``) while the device runs
+    chunk k; up to :data:`_PIPELINE_DEPTH` chunks are dispatched ahead of
+    the one being collected; one collector thread fetches each chunk's
+    packed results, converts them, re-runs the saturated frames and
+    calls ``on_batch``, in chunk order.  On the card the store of decoded
+    frames is pinned host memory that the decoder fills in one native
+    pass and nothing rewrites, so a chunk's coordinates go from it to
+    the device on a side stream whose event the compute stream waits
+    on, and the retries read the same store; the chunk loop never
+    synchronises the device.  On the CPU (which the caller asks for) the
+    store is a plain host array.  A short last chunk runs at its own
+    size.
+    """
+    if n_frames == 0:
         return
     device = resolve_device(device)
-    bound = float(np.max(maxd_per_frame))
-    pin = float(reference_max_diameter) if reference_max_diameter is not None else bound
-    n_win, n_avg, l1, l2 = static_sizes(pin, cfg)
-    # path lengths cover the largest member even under a smaller pin
-    _, _, l1_b, l2_b = static_sizes(bound, cfg)
-    sizes = (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+    cuda = device.type == "cuda"
+    n = len(elements)
     dtype = default_dtype(device)
     np_dtype = numpy_dtype(dtype)
     n_pad = round_up(max(n, 1), pad_multiple())
@@ -320,52 +437,175 @@ def sweep_uniform(
             fields_cache[m] = tuple(r.expand(m, n_pad).contiguous() for r in rows)
         return fields_cache[m]
 
-    c = max_safe_batch(n_pad, pin, cfg, device) if batch_size is None else int(batch_size)
-    c = max(1, min(c, f_total))
-    esc_key = (hash(np.asarray(elements).tobytes()), n_pad, cfg)
-    live = LEARNED_CAPS.get(esc_key, cfg)
+    # decoded frames accumulate in the pipeline dtype (a restart never
+    # decodes again), pinned on the card; the retries read the float64
+    # frames where the caller has them, else this store (a float32 frame
+    # is what the pipeline would see of its float64 source anyway)
+    fill_store = cuda or preloaded is None or preloaded.dtype != np_dtype
+    if fill_store:
+        store_t = torch.empty((n_frames, n, 3), dtype=dtype, pin_memory=cuda)
+        store = store_t.numpy()
+    else:
+        store = preloaded
+    retry_src = store if preloaded is None else preloaded
+    slab_key = "out64" if np_dtype == np.float64 else "out32"
+    maxd_pf = np.empty(n_frames, dtype=np.float64)
+    state = {"decoded": 0}
 
-    for lo, hi in chunk_plan(f_total, c):
-        m = hi - lo
-        with stage("sweep_assemble"):
-            buf = np.full((m, n_pad, 3), FAR_AWAY, dtype=np_dtype)
-            buf[:, :n] = coords[lo:hi]
-        with stage("sweep_h2d"):
-            tight = torch.as_tensor(buf, device=device)
-        chunk_cfg = live
-        with stage("sweep_step"):
-            flat = _analysis.run_pipeline(MolArrays(tight, *fields_for(m)), sizes, chunk_cfg)
-            # the span holds the chunk's device time (the fetch below
-            # would wait for it anyway), not just the enqueue
-            if tight.is_cuda:
-                torch.cuda.synchronize(tight.device)
-        results = collect_batch((flat, m, chunk_cfg, pin))
-        esc: dict = {}
-        results = retry_saturated_windows(
-            [(elements, coords[i]) for i in range(lo, hi)],
-            results, chunk_cfg, escalation_sink=esc,
-            reference_max_diameter=pin, device=device,
+    def decode_into(hi: int) -> None:
+        with stage("sweep_decode"):
+            lo = state["decoded"]
+            outs = {slab_key: store[lo:hi]} if fill_store else {}
+            maxd_pf[lo:hi] = decode_slab(lo, hi, **outs)
+            state["decoded"] = hi
+
+    streaming = bound_maxd is None
+    # sticky cap escalation (see finish): learned per system and base
+    # config for the life of the process, kept across restarts
+    esc_key = (hash(np.asarray(elements).tobytes()), n_pad, cfg)
+    cfg_live = {"cfg": LEARNED_CAPS.get(esc_key, cfg)}
+
+    def current_sizes() -> tuple:
+        run_max = bound_maxd if not streaming else float(np.max(maxd_pf[: state["decoded"]]))
+        pin = ref if ref is not None else run_max
+        n_win, n_avg, l1, l2 = static_sizes(pin, cfg)
+        # path lengths cover the largest member even under a smaller pin
+        _, _, l1_b, l2_b = static_sizes(run_max, cfg)
+        return pin, (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+
+    compute = torch.cuda.current_stream(device) if cuda else None
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+    fetch_stream = torch.cuda.Stream(device) if cuda else None
+
+    while True:  # a streamed sweep restarts when the sizes escalate
+        if state["decoded"] == 0:
+            with stage("sweep_decode_wait"):  # the first slab: nothing to overlap
+                decode_into(min(n_frames, batch_size or _FIRST_SLAB))
+        pin, sizes = current_sizes()
+        if size_gate is not None:
+            size_gate["final"] = not streaming or state["decoded"] == n_frames
+        c = max_safe_batch(n_pad, pin, cfg, device) if batch_size is None else int(batch_size)
+        c = max(1, min(c, n_frames))
+        plan = chunk_plan(n_frames, c)
+
+        def dispatch(lo: int, hi: int):
+            m = hi - lo
+            with stage("sweep_h2d"):
+                if cuda:
+                    with torch.cuda.stream(copy_stream):
+                        tight = store_t[lo:hi].to(device, non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record(copy_stream)
+                    compute.wait_event(copied)
+                    tight.record_stream(compute)
+                else:
+                    tight = torch.as_tensor(store[lo:hi])
+            chunk_cfg = cfg_live["cfg"]
+            with stage("sweep_dispatch"), profiling.device_stage("sweep_step", device) as span:
+                coords = torch.cat([tight, tight.new_full((m, n_pad - n, 3), FAR_AWAY)], 1)
+                flat = _analysis.run_pipeline(
+                    MolArrays(coords, *fields_for(m)), sizes, chunk_cfg
+                )
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(compute)
+            return flat, chunk_cfg, done, span
+
+        def finish(lo: int, hi: int, handle) -> None:
+            flat_dev, chunk_cfg, done, span = handle
+            with stage("sweep_fetch"):
+                flat = _fetch(flat_dev, done, fetch_stream)
+            span.settle()
+            del flat_dev, handle
+            results = _to_dicts(flat, chunk_cfg)
+            esc: dict = {}
+            results = retry_saturated_windows(
+                [(elements, retry_src[i]) for i in range(lo, hi)],
+                results, chunk_cfg, escalation_sink=esc,
+                reference_max_diameter=pin, device=device,
+            )
+            # sticky escalation for later chunks, only when the marker is
+            # endemic (a majority of the chunk): a stray frame is cheaper
+            # through the per-chunk retry it just took.  A chunk already
+            # dispatched runs at the old caps and retries its frames:
+            # their results are the same either way.
+            endemic = (hi - lo) // 2
+            live = cfg_live["cfg"]
+            nxt = live
+            if esc.get("open_overflow", 0) > endemic:
+                frac = 2.0 * chunk_cfg.open_cap_frac
+                if frac > nxt.open_cap_frac:
+                    nxt = dataclasses.replace(nxt, open_cap_frac=frac)
+            if esc.get("window_sat", 0) > endemic:
+                w = min(2 * chunk_cfg.max_windows, MAX_WINDOWS_CEILING)
+                if w > nxt.max_windows:
+                    nxt = dataclasses.replace(nxt, max_windows=w)
+            # memory guard: keep the per-chunk retry when the escalated
+            # config no longer fits a chunk
+            if nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
+                cfg_live["cfg"] = nxt
+                LEARNED_CAPS.put(esc_key, nxt)
+            with stage("sweep_on_batch"):
+                on_batch(np.arange(lo, hi, dtype=np.int64), results)
+
+        escalated = False
+        with (
+            ThreadPoolExecutor(max_workers=1) as collector,
+            ThreadPoolExecutor(max_workers=1) as decoder,
+        ):
+            inflight: collections.deque = collections.deque()  # dispatched
+            collects: collections.deque = collections.deque()  # queued collects
+            pending = None  # the decode in flight
+
+            def queue_collect() -> None:
+                lo0, hi0, h0 = inflight.popleft()
+                collects.append(collector.submit(finish, lo0, hi0, h0))
+
+            for lo, hi in plan:
+                # this chunk's frames must be decoded
+                while state["decoded"] < hi and not escalated:
+                    with stage("sweep_decode_wait"):
+                        if pending is not None:
+                            pending.result()
+                            pending = None
+                        else:
+                            decode_into(min(state["decoded"] + c, n_frames))
+                    escalated = streaming and current_sizes()[1] != sizes
+                # a prefetch that has finished may escalate too
+                if pending is not None and pending.done():
+                    pending.result()
+                    pending = None
+                    escalated = streaming and current_sizes()[1] != sizes
+                if escalated:
+                    break
+                if size_gate is not None and pending is None and state["decoded"] == n_frames:
+                    size_gate["final"] = True  # every slab decoded, no escalation
+                if pending is None and state["decoded"] < n_frames:
+                    pending = decoder.submit(decode_into, min(state["decoded"] + c, n_frames))
+                inflight.append((lo, hi, dispatch(lo, hi)))
+                if len(inflight) > _PIPELINE_DEPTH:
+                    queue_collect()
+                # retire finished collects (raises their errors, bounds
+                # the queue)
+                while len(collects) > 1:
+                    with stage("sweep_collect_wait"):
+                        collects.popleft().result()
+            # drain (also on the escalated break: the prefetch writes
+            # the store the restart reads)
+            if pending is not None:
+                pending.result()
+            while inflight:
+                queue_collect()
+            while collects:
+                collects.popleft().result()
+        if not escalated:
+            return
+        logger.info(
+            "sweep sampling sizes escalated mid-stream (%s -> %s); "
+            "restarting over the %d decoded frames",
+            sizes, current_sizes()[1], state["decoded"],
         )
-        # sticky escalation for later chunks, only when the marker is
-        # endemic (a majority of the chunk): a stray frame is cheaper
-        # through the per-chunk retry it just took
-        endemic = m // 2
-        nxt = live
-        if esc.get("open_overflow", 0) > endemic:
-            frac = 2.0 * chunk_cfg.open_cap_frac
-            if frac > nxt.open_cap_frac:
-                nxt = dataclasses.replace(nxt, open_cap_frac=frac)
-        if esc.get("window_sat", 0) > endemic:
-            w = min(2 * chunk_cfg.max_windows, MAX_WINDOWS_CEILING)
-            if w > nxt.max_windows:
-                nxt = dataclasses.replace(nxt, max_windows=w)
-        # memory guard: keep the per-chunk retry when the escalated
-        # config no longer fits a chunk
-        if nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
-            live = nxt
-            LEARNED_CAPS.put(esc_key, live)
-        with stage("sweep_on_batch"):
-            on_batch(np.arange(lo, hi, dtype=np.int64), results)
 
 
 def retry_saturated_windows(

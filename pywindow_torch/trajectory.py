@@ -9,21 +9,25 @@ plain versions.  ``analysis_batched`` runs the frames as device batches
 through :mod:`pywindow_torch.parallel.batch`:
 
 - frames that share one atom-id list (and are not split into molecules)
-  decode in one threaded native pass and sweep in chunks with the
-  per-atom fields moved to the device once;
+  stream: slab k+1 decodes in one threaded native pass (the GIL
+  released) while the device runs chunk k, the per-atom fields move to
+  the device once, and the chunks' results are collected on a thread
+  (:func:`~pywindow_torch.parallel.batch.sweep_stream`); a slab whose
+  atom ids diverge from the first frame's, or that does not parse,
+  sends the frames to the generic path (:class:`SweepDecodeError`);
 - modular frames (``modular=True``, optionally ``rebuild=True`` for
   periodic cells) and frames whose atom ids vary take the generic path:
   chunks of frames, each frame split into its molecules on the host, the
   molecules dispatched in buckets of one padded atom count under one
   sampling pin, the saturated ones re-run before anything is recorded;
 - ``exact_sizes`` buckets frames by their own sampling sizes, so the
-  batched results equal the serial ones.
+  batched results equal the serial ones; it, and ``use_native=False``,
+  decode every frame before the first chunk
+  (:func:`~pywindow_torch.parallel.batch.sweep_uniform`).
 
 Results land in ``analysis_output`` as ``{frame: {molecule key:
 properties}}`` (key ``"0"`` for a whole frame, the ints of
-``make_modular`` for molecules).  Streamed decoding overlapped with the
-device, CUDA streams and pinned buffers are not ported yet (ROADMAP
-Q1.8): the chunk loop is synchronous.
+``make_modular`` for molecules).
 
 Fixed reference quirks, as in the JAX package: tuple frame ranges work,
 ``make_supercell`` uses ``supercell[2]`` for the c direction, and a
@@ -41,7 +45,7 @@ from mmap import ACCESS_READ, mmap
 import numpy as np
 import torch
 
-from pywindow_torch import native
+from pywindow_torch import native, profiling, tables
 from pywindow_torch.config import DEFAULT_CONFIG, pad_multiple, resolve_device
 from pywindow_torch.io.outputs import Output, to_list
 from pywindow_torch.molecular import MolecularSystem
@@ -64,6 +68,12 @@ _FRAME_CACHE_LIMIT = 4096
 
 class TrajectoryError(ValueError):
     """Corrupted or inconsistent trajectory file."""
+
+
+class SweepDecodeError(RuntimeError):
+    """A slab of the streamed sweep did not decode: a frame does not
+    parse, or its atom ids diverge from the first frame's.  The sweep's
+    frames then take the generic per-frame path."""
 
 
 def make_supercell(system: dict, supercell=None) -> MolecularSystem:
@@ -188,12 +198,78 @@ class Trajectory:
 
     def _sweep_batch_fn(self):
         """The format's native whole-sweep decoder, ``fn(buf, starts,
-        ends, n_atoms, ref_ids) -> (coords, ids_match) | None``, or None
-        where the format has none."""
+        ends, n_atoms, ref_ids, **slabs) -> (coords, ids_match) | None``
+        (``slabs``: see :func:`~pywindow_torch.native.decode_dlpoly_frames_batch`),
+        or None where the format has none."""
         return None
 
+    def _sweep_elements(self, ids_key, ids0, swap_atoms, forcefield) -> np.ndarray:
+        """The element list of frames whose atom ids are ``ids0``: one
+        representative frame takes the swap/decipher semantics for all."""
+        rep = self._system(
+            {ids_key: ids0.copy(), "coordinates": np.zeros((len(ids0), 3))}, "sweep",
+            swap_atoms, forcefield,
+        )
+        return np.asarray(rep.system_to_molecule().elements)
+
+    def _sweep_open_native(self, frames, swap_atoms, forcefield):
+        """Open the streamed sweep's slab decoder over ``frames``:
+        ``(elements, decode_slab, close)``, or None where the format has
+        no native batch decoder, the trajectory was opened with
+        ``use_native=False``, or the frames' coordinates exceed
+        :attr:`_SWEEP_DECODE_BUDGET`.
+
+        ``decode_slab(lo, hi, out64=None, out32=None)`` decodes frame
+        positions [lo, hi) in one threaded native pass (the GIL
+        released) straight into the sweep's slab and returns their
+        maximum diameters, computed in the same pass; it raises
+        :class:`SweepDecodeError` when a frame does not parse or its atom
+        ids diverge from the first frame's.  ``close()`` releases the
+        file map."""
+        batch_fn = self._sweep_batch_fn() if self.use_native else None
+        if batch_fn is None:
+            return None
+        raw0 = self._raw_frames([frames[0]])[0]
+        ids_key = "atom_ids" if "atom_ids" in raw0 else "elements"
+        ids0 = np.asarray(raw0[ids_key], dtype="<U8")
+        n = len(ids0)
+        if n == 0 or len(frames) * n * 24 > self._SWEEP_DECODE_BUDGET:
+            return None
+        elements = self._sweep_elements(ids_key, ids0, swap_atoms, forcefield)
+        vdw = tables.ELEMENT_VDW[tables.element_ids(elements)].astype(np.float64)
+        ref_ids = ids0.astype("S9").tobytes()
+        starts = np.array([self.trajectory_map[f][0] for f in frames], dtype=np.int64)
+        ends = np.array([self.trajectory_map[f][1] for f in frames], dtype=np.int64)
+        native.lib()  # build before the buffer is exported
+        fh = self.filepath.open()
+        mapped = mmap(fh.fileno(), 0, access=ACCESS_READ)
+        holder = {"buf": np.frombuffer(mapped, dtype=np.uint8)}
+
+        def decode_slab(lo: int, hi: int, out64=None, out32=None) -> np.ndarray:
+            maxd = np.empty(hi - lo, dtype=np.float64)
+            got = batch_fn(
+                holder["buf"], starts[lo:hi], ends[lo:hi], n, ref_ids,
+                vdw=vdw, maxd=maxd, out64=out64, out32=out32,
+            )
+            if got is None:
+                msg = f"a frame of positions {lo}..{hi - 1} does not parse"
+                raise SweepDecodeError(msg)
+            if not got[1]:
+                msg = f"atom ids of positions {lo}..{hi - 1} diverge from the first frame's"
+                raise SweepDecodeError(msg)
+            return maxd
+
+        def close() -> None:
+            holder.clear()  # release the buffer before the map closes
+            mapped.close()
+            fh.close()
+
+        return elements, decode_slab, close
+
     def _decode_uniform(self, todo, swap_atoms, forcefield):
-        """``(elements, coordinates (F, N, 3) float64)`` of frames that
+        """Every frame decoded up front (``exact_sizes``, and
+        ``use_native=False`` with the Python decoders):
+        ``(elements, coordinates (F, N, 3) float64)`` of frames that
         all carry frame ``todo[0]``'s atom ids, or None when they do not
         (or a frame does not parse, or the block exceeds its budget):
         the caller then takes the generic path.  One representative
@@ -226,11 +302,7 @@ class Trajectory:
             if any(not np.array_equal(np.asarray(r[ids_key]), ids0) for r in raws):
                 return None
             coords = np.stack([np.asarray(r["coordinates"], np.float64) for r in raws])
-        rep = self._system(
-            {ids_key: ids0.copy(), "coordinates": np.zeros((n, 3))}, "sweep",
-            swap_atoms, forcefield,
-        )
-        return np.asarray(rep.system_to_molecule().elements), coords
+        return self._sweep_elements(ids_key, ids0, swap_atoms, forcefield), coords
 
     # -- analysis ---------------------------------------------------------
 
@@ -310,10 +382,18 @@ class Trajectory:
             return
 
         chunks_done = [0]
+        # the streamed sweep keeps "final" false while a mid-stream size
+        # escalation may still re-deliver its chunks; no checkpoint is
+        # written meanwhile (the other routes never escalate)
+        size_gate = {"final": True}
 
         def chunk_done() -> None:
             chunks_done[0] += 1
-            if autosave is not None and chunks_done[0] % max(autosave_every, 1) == 0:
+            if (
+                autosave is not None
+                and chunks_done[0] % max(autosave_every, 1) == 0
+                and size_gate["final"]
+            ):
                 self.save_analysis(autosave, override=True)
             if chunks_done[0] % 20 == 0:
                 gc.collect()
@@ -325,16 +405,28 @@ class Trajectory:
         gc_was_enabled = gc.isenabled()
         gc.disable()
         try:
-            uniform = None
-            if not modular:
+            swept = False
+            if not modular and not exact_sizes:
+                opened = self._sweep_open_native(todo, swap_atoms, forcefield)
+                if opened is not None:
+                    swept = self._analysis_batched_stream(
+                        todo, *opened, batch_size, reference_max_diameter, size_gate,
+                        chunk_done, device,
+                    )
+                    if not swept:  # a slab did not decode: every frame anew
+                        for f in todo:
+                            self.analysis_output.pop(f, None)
+                        size_gate["final"] = True
+            elif not modular:
                 with stage("trajectory_decode"):
                     uniform = self._decode_uniform(todo, swap_atoms, forcefield)
-            if uniform is not None:
-                self._sweep_uniform(
-                    todo, *uniform, batch_size, reference_max_diameter, exact_sizes,
-                    chunk_done, device,
-                )
-            else:
+                if uniform is not None:
+                    self._sweep_uniform(
+                        todo, *uniform, batch_size, reference_max_diameter, exact_sizes,
+                        chunk_done, device,
+                    )
+                    swept = True
+            if not swept:
                 self._sweep_generic(
                     todo, batch_size or _GENERIC_BATCH, modular, rebuild, swap_atoms,
                     forcefield, reference_max_diameter, exact_sizes, chunk_done, device,
@@ -345,33 +437,65 @@ class Trajectory:
         if autosave is not None:
             self.save_analysis(autosave, override=True)
 
+    def _sweep_on_batch(self, todo, n_atoms, chunk_done):
+        """The chunk recorder of the streamed and uniform sweeps:
+        ``on_batch(positions, results)`` files each result as frame
+        ``todo[position]``'s entry ``"0"`` (a re-delivered position
+        overwrites), then counts the chunk (``chunk_done``: the autosave
+        and the bounded garbage collection)."""
+
+        def on_batch(positions, results) -> None:
+            out = self.analysis_output
+            for pos, props in zip(positions.tolist(), results):
+                props.pop("molecular_weight", None)
+                props["no_of_atoms"] = n_atoms
+                out.setdefault(todo[pos], {})["0"] = props
+            chunk_done()
+
+        return on_batch
+
+    def _analysis_batched_stream(
+        self, todo, elements, decode_slab, close, batch_size, reference_max_diameter,
+        size_gate, chunk_done, device,
+    ) -> bool:
+        """The streamed sweep of ``todo`` (see
+        :func:`~pywindow_torch.parallel.batch.sweep_stream`) over the
+        opened slab decoder, which it closes; False when a slab did not
+        decode (:class:`SweepDecodeError`), and the caller takes the
+        generic path."""
+        on_batch = self._sweep_on_batch(todo, len(elements), chunk_done)
+        size_gate["final"] = False
+        try:
+            batch.sweep_stream(
+                elements, len(todo), decode_slab, on_batch, batch_size=batch_size,
+                reference_max_diameter=reference_max_diameter, size_gate=size_gate,
+                device=device,
+            )
+        except SweepDecodeError:
+            return False
+        finally:
+            close()
+        return True
+
     def _sweep_uniform(
         self, todo, elements, coords, batch_size, reference_max_diameter, exact_sizes,
         chunk_done, device,
     ) -> None:
-        """Frames of one element list through :func:`batch.sweep_uniform`,
+        """Frames decoded up front through :func:`batch.sweep_uniform`,
         one sweep per sampling-size bucket under ``exact_sizes``."""
-        n_atoms = len(elements)
         with stage("sweep_max_diameters"):
             maxd = batch.frame_max_diameters(elements, coords, device)
         if exact_sizes:
             groups = [(np.asarray(i), ref) for i, ref in _size_buckets(maxd)]
         else:
             groups = [(np.arange(len(todo)), reference_max_diameter)]
+        record = self._sweep_on_batch(todo, len(elements), chunk_done)
         for idxs, ref in groups:
-
-            def on_batch(positions, results, idxs=idxs):
-                out = self.analysis_output
-                for pos, props in zip(idxs[positions].tolist(), results):
-                    props.pop("molecular_weight", None)
-                    props["no_of_atoms"] = n_atoms
-                    out.setdefault(todo[pos], {})["0"] = props
-                chunk_done()
-
             whole = len(idxs) == len(todo)
             batch.sweep_uniform(
                 elements, coords if whole else coords[idxs], maxd if whole else maxd[idxs],
-                on_batch, batch_size=batch_size, reference_max_diameter=ref, device=device,
+                lambda positions, results, idxs=idxs: record(idxs[positions], results),
+                batch_size=batch_size, reference_max_diameter=ref, device=device,
             )
 
     def _sweep_generic(
@@ -453,16 +577,14 @@ class Trajectory:
             safe = batch.max_safe_batch(p, max(bounds[i] for i in idxs), device=device)
             for lo in range(0, len(idxs), safe):
                 part = idxs[lo : lo + safe]
-                with stage("sweep_step"):
+                with profiling.device_stage("sweep_step", device) as span:
                     handle = batch.dispatch_batch(
                         [systems[i] for i in part], reference_max_diameter=pin,
                         pad_atoms=p, device=device,
                     )
-                    # the span holds the batch's device time
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
                 for i, r in zip(part, batch.collect_batch(handle)):
                     results[i] = r
+                span.settle()  # the batch's device time, read after its fetch
         return results, pin
 
     # -- persistence -------------------------------------------------------
@@ -653,8 +775,8 @@ class DLPOLY(Trajectory):
         if keytrj not in (0, 1, 2) or self._imcon not in (0, 1, 2, 3):
             return None
         has_cell = self._imcon in (1, 2, 3)
-        return lambda buf, s, e, n, rid: native.decode_dlpoly_frames_batch(
-            buf, s, e, keytrj, has_cell, n, rid
+        return lambda buf, s, e, n, rid, **slabs: native.decode_dlpoly_frames_batch(
+            buf, s, e, keytrj, has_cell, n, rid, **slabs
         )
 
     def _decode_raw(self, raw: str) -> dict:

@@ -882,3 +882,61 @@ def test_ray_kernel_launches_per_pipeline_call(cuda):
             batch.dispatch_batch([(elements, coords)] * n_frames, reference_max_diameter=22.179369990077188)
         )
         assert _cuda.LAUNCHES["ray_exit"] == 2 and _cuda.LAUNCHES["path_sweep"] == 1
+
+
+def _sweep(fn, elements, coords, maxd, batch_size, **kwargs):
+    from pywindow_torch.parallel import batch
+
+    got: dict = {}
+    batch.LEARNED_CAPS._caps.clear()
+    if fn == "uniform":
+        batch.sweep_uniform(
+            elements, coords, maxd, lambda pos, res: got.update(zip(pos.tolist(), res)),
+            batch_size=batch_size,
+        )
+        return got
+
+    def decode_slab(lo, hi, out64=None, out32=None):
+        for out in (out64, out32):
+            if out is not None:
+                out[...] = coords[lo:hi]
+        return maxd[lo:hi]
+
+    batch.sweep_stream(
+        elements, len(coords), decode_slab, lambda pos, res: got.update(zip(pos.tolist(), res)),
+        batch_size=batch_size, **kwargs,
+    )
+    return got
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_sweep_stream_on_the_card_equals_sweep_uniform(cuda, scaled):
+    """The streamed sweep's card path (the pinned store, the copy and
+    fetch streams, the collector thread) against sweep_uniform on the
+    card, bit for bit: 22 fixture frames in chunks of 4 (the last chunk
+    of 2 frames at its own size), and 8 frames then the same scaled by
+    1.35 in chunks of 8 (a restart at grown sampling sizes)."""
+    from pywindow_torch.ops.analysis import max_dim_host
+
+    fr = pt.DLPOLY(DATA / "HISTORY_singlemol_short").get_frames(
+        list(range(20)), swap_atoms={"he": "H"}, forcefield="OPLS"
+    )
+    elements = np.asarray(fr[0].system["elements"])
+    coords = np.stack([fr[k % 20].system["coordinates"] for k in range(22)])
+    size = 4
+    if scaled:
+        coords = np.concatenate([coords[:8], coords[:8] * 1.35])
+        size = 8
+    maxd = np.array([max_dim_host(elements, c) for c in coords])
+    gate: dict = {"final": False}
+    uniform = _sweep("uniform", elements, coords, maxd, size)
+    stream = _sweep("stream", elements, coords, maxd, size, size_gate=gate)
+    assert gate["final"] and sorted(stream) == sorted(uniform) == list(range(len(coords)))
+    for f in uniform:
+        for key, sub in (("pore_diameter_opt", "diameter"), ("average_diameter", None),
+                         ("windows", "diameters"), ("windows", "centre_of_mass")):
+            a = stream[f][key] if sub is None else stream[f][key][sub]
+            b = uniform[f][key] if sub is None else uniform[f][key][sub]
+            assert (a is None) == (b is None)
+            if b is not None:
+                np.testing.assert_array_equal(a, b)
