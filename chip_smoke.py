@@ -106,9 +106,29 @@ result line):
    ``profiling.trace`` (the six pipeline kernels in the trace); then,
    off the main paths,
    ``dbscan_spiral`` on a sweep chunk's whole-spiral ray endpoints,
-   timed beside the dbscan kernel on the same points.
+   timed beside the dbscan kernel on the same points;
+12. the frame mesh and the multi-process sweep, run after phase 6's
+   legs on its 4,320-frame history at ``batch_size=1440`` (profiling
+   off): (a) ``analysis_batched(device="cuda")``, the default's cards
+   (``parallel.mesh.shard_devices``), against
+   ``device="cuda:0"``; (b) two shards on one card,
+   ``device=["cuda:0", "cuda:0"]``, once as a main path and then timed;
+   (c) two ``gloo`` ranks on the
+   first card and (d) one NCCL rank, each a subprocess
+   (``python3 chip_smoke.py --rank-worker ...``, :func:`rank_worker`)
+   with its own timeout, through
+   ``parallel.distributed.analysis_batched_distributed``: each rank
+   decodes only its own shard, launches all six pipeline kernels,
+   loads no JAX and holds all 4,320 frames; (e) with more than one
+   card, one process over the first k cards for every k at chunks of
+   720 to 4,320 frames and REYMAL batches over k cards (the
+   measurement behind ``parallel.mesh.shard_devices``), then one NCCL
+   rank a card.
+   Every leg equals (a)'s ``cuda:0`` run bit for bit on every value of
+   every frame; frames/s beside the card's name and power limit.
+   ``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 12 alone.
 
-Phases 4-6, 8, 9, 10 and 11 are the main paths: before each the kernel
+Phases 4-6, 8, 9, 10, 11 and 12's two-shard run are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
 have launched (all six pipeline kernels; ``clearance_min`` and its three
 helper passes on its grid);
@@ -130,6 +150,8 @@ import json
 import math
 import os
 import pathlib
+import pickle
+import socket
 import subprocess
 import statistics
 import sys
@@ -2401,6 +2423,328 @@ def phase_dbscan_spiral(pin: float) -> None:
     )
 
 
+# -- phase 12: the frame mesh and the multi-process sweep --------------------
+
+#: the sweep's force-field options (phase 6's)
+SWEEP_FF = {"swap_atoms": {"he": "H"}, "forcefield": "OPLS"}
+#: seconds a rank of phase 12 may run (start-up, kernel load, two sweeps)
+RANK_TIMEOUT = 300
+#: chunk sizes of phase 12's scan over cards, and REYMAL batch sizes
+SCAN_CHUNKS = (720, 1440, 2160, 4320)
+WIDE_COUNTS = (480, 1440)
+
+
+def frame_dicts(traj) -> dict:
+    return {f: traj.analysis_output[f]["0"] for f in traj.analysis_output}
+
+
+def same_frames(label: str, got: dict, ref: dict) -> None:
+    """Every frame's dict equal to the reference's: the same keys, types
+    and shapes, every value bit for bit."""
+    check(sorted(got) == sorted(ref), f"{label}: {len(got)} frames against {len(ref)}")
+    for f in ref:
+        try:
+            same_dicts([got[f]], [ref[f]])
+        except AssertionError as exc:
+            raise AssertionError(f"{label} frame {f}: {exc}") from exc
+
+
+def mesh_sweep(path: pathlib.Path, device, chunk: int | None = SWEEP_CHUNK) -> tuple[dict, float]:
+    """One 4,320-frame ``analysis_batched`` on ``device`` in chunks of
+    ``chunk`` frames (learned caps cleared): its dicts and seconds, from
+    the map to the last result."""
+    import pywindow_torch as pt
+
+    from pywindow_torch.parallel import batch
+
+    batch.LEARNED_CAPS._caps.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = pt.DLPOLY(path)
+    traj.analysis_batched(batch_size=chunk, device=device, **SWEEP_FF)
+    torch.cuda.synchronize()
+    return frame_dicts(traj), time.perf_counter() - t0
+
+
+def timed_turns(label: str, path: pathlib.Path, specs: dict, ref: dict, chunk=SWEEP_CHUNK) -> dict:
+    """Time the sweep on each ``{name: device}`` of ``specs`` in turns,
+    forward then backward (the spread of one position shows), every run
+    equal to ``ref``; prints and returns frames/s by name."""
+    rates: dict = {name: [] for name in specs}
+    for name in list(specs) + list(specs)[::-1]:
+        got, seconds = mesh_sweep(path, specs[name], chunk)
+        same_frames(f"{label} {name}", got, ref)
+        rates[name].append(SWEEP_FRAMES / seconds)
+    shown = "; ".join(f"{name} {json.dumps([round(r, 1) for r in v])}" for name, v in rates.items())
+    print(f"{label}: {shown} frames/s; all {SWEEP_FRAMES} frames equal to (a) on cuda:0 bit for bit")
+    return rates
+
+
+def wide_scan(n_cards: int) -> None:
+    """(e), one process, a wider system: ``analyze_batch`` of
+    :data:`WIDE_COUNTS` copies of REYMAL (468 atoms, ~7.8x CC3's atom
+    pairs) over the first k cards and over an unindexed ``"cuda"``
+    (``mesh.shard_devices``), in turns forward then backward, every
+    result equal to the one-card run's bit for bit."""
+    from pywindow_torch.parallel import batch, mesh
+
+    m = molecule("REYMAL")
+    for count in WIDE_COUNTS:
+        systems = [(m.elements, m.coordinates)] * count
+        specs = {f"{k} card(s)": [f"cuda:{i}" for i in range(k)] for k in range(1, n_cards + 1)}
+        specs['"cuda"'] = "cuda"
+        ref = batch.analyze_batch(systems, device="cuda:0")
+        for spec in specs.values():  # a first call on each layout, untimed
+            batch.analyze_batch(systems, device=spec)
+        rates: dict = {name: [] for name in specs}
+        for name in list(specs) + list(specs)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = batch.analyze_batch(systems, device=specs[name])
+            torch.cuda.synchronize()
+            rates[name].append(count / (time.perf_counter() - t0))
+            same_dicts(got, ref)
+        shown = "; ".join(f"{k} {json.dumps([round(r, 1) for r in v])}" for k, v in rates.items())
+        used = [str(d) for d in mesh.shard_devices("cuda")]
+        print(
+            f"(e) analyze_batch of {count} REYMAL copies: {shown} molecules/s (\"cuda\" on "
+            f"{used}); every result equal to one card's bit for bit"
+        )
+
+
+def shard_scan(path: pathlib.Path, n_cards: int, ref: dict) -> None:
+    """(e), one process: the sweep over the first k cards for every k,
+    at chunks of 720, 1,440, 2,160 and 4,320 frames (shards of 180 to
+    4,320), k = 1 the one-card baseline of each chunk; :func:`wide_scan`;
+    then an unindexed
+    ``"cuda"`` (``mesh.shard_devices``) against ``"cuda:0"`` at 1,440 and
+    at the memory-sized default chunk."""
+    from pywindow_torch.parallel import mesh
+
+    for chunk in SCAN_CHUNKS:
+        specs = {f"{k} card(s)": [f"cuda:{i}" for i in range(k)] for k in range(1, n_cards + 1)}
+        rates = timed_turns(f"(e) chunks of {chunk}", path, specs, ref, chunk)
+        one = min(rates["1 card(s)"])
+        for k in range(2, n_cards + 1):
+            got = rates[f"{k} card(s)"]
+            print(
+                f"(e) chunks of {chunk}, {k} cards, shards of {chunk // k}: "
+                f"{'faster' if min(got) > max(rates['1 card(s)']) else 'not faster'} than one card "
+                f"in every pair ({min(got) / one:.3f}x its slower reading at the worst)"
+            )
+    wide_scan(n_cards)
+    for chunk in (SWEEP_CHUNK, None):
+        used = [str(d) for d in mesh.shard_devices("cuda")]
+        timed_turns(
+            f'(e) "cuda" (a chunk on {used}) against "cuda:0", chunks of {chunk or "the default"}',
+            path, {"cuda": "cuda", "cuda:0": "cuda:0"}, ref, chunk,
+        )
+
+
+def rank_worker(argv: list[str]) -> None:
+    """One rank of phase 12, run as ``python3 chip_smoke.py --rank-worker
+    RANK WORLD PORT BACKEND DEVICE HISTORY OUT``: joins the process group,
+    sweeps HISTORY through ``analysis_batched_distributed`` twice (the
+    first run loads the kernels; the second, with ``override``, is the
+    warm one and must equal the first), and pickles its report to OUT:
+    the frames it decoded, its kernel launches over the first run, both
+    runs' seconds, whether JAX was loaded, and every frame's dict."""
+    import pywindow_torch as pt
+
+    from pywindow_torch.ops import _cuda
+    from pywindow_torch.parallel import distributed, mesh
+
+    rank, world, port, backend, device, path, out = argv
+    dev = distributed.initialize(f"127.0.0.1:{port}", int(world), int(rank), backend=backend)
+    traj = pt.DLPOLY(path)
+    decoded: list = []
+    decode = traj._decode_uniform
+
+    def spy(frames, *args):
+        decoded.append([frames[0], frames[-1], len(frames)])
+        return decode(frames, *args)
+
+    traj._decode_uniform = spy
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    plan = distributed.analysis_batched_distributed(
+        traj, device=device, batch_size=SWEEP_CHUNK, **SWEEP_FF
+    )
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {k: _cuda.LAUNCHES[k] for k in KERNELS}
+    first = frame_dicts(traj)
+    t0 = time.perf_counter()
+    distributed.analysis_batched_distributed(
+        traj, device=device, batch_size=SWEEP_CHUNK, override=True, **SWEEP_FF
+    )
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    same_frames(f"rank {rank}: warm against cold", frame_dicts(traj), first)
+    report = {
+        "rank": int(rank), "device": str(dev), "backend": torch.distributed.get_backend(),
+        "devices": [str(d) for d in mesh.frame_devices(device)],
+        "ranks_on": mesh.ranks_on(dev), "decoded": decoded, "launches": launches,
+        "cold_s": cold, "warm_s": warm, "plan": plan,
+        "jax": [m for m in ("jax", "pywindow_tpu") if m in sys.modules],
+        "output": frame_dicts(traj),
+    }
+    with open(out, "wb") as fh:
+        pickle.dump(report, fh)
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(
+    label: str, path: pathlib.Path, world: int, backend: str, device: str, one_card: bool = False
+) -> list[dict]:
+    """``world`` ranks of :func:`rank_worker` as subprocesses (``LOCAL_RANK``
+    and ``LOCAL_WORLD_SIZE`` set as ``torchrun`` sets them; ``one_card``:
+    only the first card visible to them); their reports.  A rank that
+    fails, or runs past :data:`RANK_TIMEOUT`, fails the phase; every rank
+    is stopped before this returns."""
+    port = free_port()
+    outdir = ROOT / "build" / "phase12"
+    outdir.mkdir(parents=True, exist_ok=True)
+    outs = [outdir / f"{label}-{r}.pkl" for r in range(world)]
+    for out in outs:
+        out.unlink(missing_ok=True)
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(world)}
+        if one_card:
+            env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        cmd = [
+            sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", str(r), str(world),
+            str(port), backend, device, str(path), str(outs[r]),
+        ]
+        procs.append(
+            subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        )
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for proc in procs:
+            left = max(1.0, RANK_TIMEOUT - (time.perf_counter() - t0))
+            logs.append(proc.communicate(timeout=left)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"{label}: rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+    reports = []
+    for out in outs:
+        with out.open("rb") as fh:
+            reports.append(pickle.load(fh))
+    print(f"{label}: {world} ranks ({backend}, device {device}) ran {wall:.3f} s as processes")
+    return reports
+
+
+def check_ranks(label: str, reports: list[dict], ref: dict, world: int) -> float:
+    """Every rank: decoded only its own shard, launched the six pipeline
+    kernels, loaded no JAX, ran the same plan and holds all frames equal
+    to ``ref`` bit for bit.  Returns the slowest rank's warm seconds."""
+    from pywindow_torch.parallel.distributed import _shard_frames
+
+    shards = _shard_frames(list(range(SWEEP_FRAMES)), world)
+    for rep in reports:
+        r = rep["rank"]
+        own = shards[r]
+        print(
+            f"{label} rank {r}: device {rep['device']} (sweeps on {rep['devices']}), backend "
+            f"{rep['backend']}, ranks on its card {rep['ranks_on']}, decoded {rep['decoded']}, "
+            f"launches {json.dumps(rep['launches'])}, cold {rep['cold_s']:.4f} s, warm "
+            f"{rep['warm_s']:.4f} s, pin and sizes {rep['plan']}, modules {rep['jax']}"
+        )
+        check(not rep["jax"], f"{label} rank {r}: loaded {rep['jax']}")
+        check(
+            all(d == [own[0], own[-1], len(own)] for d in rep["decoded"]),
+            f"{label} rank {r}: decoded {rep['decoded']}, not its own shard",
+        )
+        for key in PIPELINE_KERNELS:
+            check(rep["launches"][key] > 0, f"{label} rank {r}: {key} did not launch")
+        check(rep["plan"] == reports[0]["plan"], f"{label} rank {r}: another plan")
+        same_frames(f"{label} rank {r}", rep["output"], ref)
+    return max(rep["warm_s"] for rep in reports)
+
+
+def phase_mesh(pipeline_calls: list, smi: str) -> None:
+    """Phase 12: the frame mesh and the multi-process sweep on the
+    4,320-frame history of phase 6 at batch_size 1,440 (profiling off):
+    (a) ``analysis_batched(device="cuda")`` against ``device="cuda:0"``,
+    timed in turns after an untimed run of each; (b) two shards on one
+    card, ``device=["cuda:0", "cuda:0"]``, once as a main path (launches
+    counted, every pipeline call's launches recorded), then timed; (c)
+    two gloo ranks on cuda:0; (d) one NCCL rank; (e) with more cards,
+    :func:`shard_scan` and one NCCL rank a card.  Every leg's 4,320
+    dicts equal (a)'s on cuda:0 bit for bit."""
+    from pywindow_torch import profiling
+    from pywindow_torch.parallel import mesh
+
+    was_on = profiling.enabled()
+    profiling.enable(False)
+    path = synth_history(SWEEP_FRAMES)
+    n_cards = torch.cuda.device_count()
+    try:
+        # the reference, and a first run on every card (its first
+        # pipeline calls there), untimed
+        ref, _ = mesh_sweep(path, "cuda:0")
+        check(len(ref) == SWEEP_FRAMES, f"mesh: {len(ref)} frames on cuda:0")
+        for k in range(1, n_cards):  # a card's first sweep is slow
+            mesh_sweep(path, f"cuda:{k}")
+        got, _ = mesh_sweep(path, "cuda")
+        same_frames('(a) device="cuda"', got, ref)
+        used = [str(d) for d in mesh.shard_devices("cuda")]
+        timed_turns(
+            f'(a) device="cuda" (a chunk on {used}) against "cuda:0"', path,
+            {"cuda": "cuda", "cuda:0": "cuda:0"}, ref,
+        )
+
+        two = ["cuda:0", "cuda:0"]
+        with main_path("frame mesh", pipeline_calls):
+            got, _ = mesh_sweep(path, two)
+        same_frames("(b) two shards on cuda:0", got, ref)
+        timed_turns("(b) two shards on cuda:0 against one", path, {"two": two, "one": "cuda:0"}, ref)
+        if n_cards > 1:
+            shard_scan(path, n_cards, ref)
+
+        reports = run_ranks("(c)", path, 2, "gloo", "cuda:0", one_card=True)
+        slowest = check_ranks("(c)", reports, ref, 2)
+        check(all(rep["ranks_on"] == 2 for rep in reports), "(c): the ranks do not share the card's budget")
+        print(
+            f"(c) two gloo ranks on cuda:0: {SWEEP_FRAMES / slowest:.1f} frames/s (the slower rank's "
+            f"warm sweep, {slowest:.4f} s); both ranks hold all {SWEEP_FRAMES} frames equal to (a)"
+        )
+
+        reports = run_ranks("(d)", path, 1, "nccl", "cuda")
+        slowest = check_ranks("(d)", reports, ref, 1)
+        print(
+            f"(d) one nccl rank: {SWEEP_FRAMES / slowest:.1f} frames/s ({slowest:.4f} s warm); "
+            f"all {SWEEP_FRAMES} frames equal to (a)"
+        )
+
+        if n_cards > 1:
+            reports = run_ranks("(e)", path, n_cards, "nccl", "cuda")
+            slowest = check_ranks("(e)", reports, ref, n_cards)
+            print(
+                f"(e) {n_cards} nccl ranks, one a card: {SWEEP_FRAMES / slowest:.1f} frames/s "
+                f"({slowest:.4f} s warm); all {SWEEP_FRAMES} frames equal to (a)"
+            )
+        else:
+            print(f"(e) not run: {n_cards} card (it needs more than one)")
+        print(f"frame mesh and multi-process sweep: card {smi}")
+    finally:
+        profiling.enable(was_on)
+
+
 def main() -> None:
     smi = phase_card()
     phase_build()
@@ -2419,6 +2763,7 @@ def main() -> None:
     phase_sweep_samples(traj, pin)
     elements, coords = phase_sweep_routes(traj, maxd)
     phase_sweep_escalation(elements, coords)
+    phase_mesh(calls, smi)
     phase_profile(pin)
     with main_path("periodic system", calls):
         phase_periodic_system()
@@ -2480,5 +2825,22 @@ def main() -> None:
     )
 
 
+def main_mesh() -> None:
+    """``--mesh``: phases 1, 2 and 12 alone (the frame mesh on every
+    card of the machine), without the kernels' line or the ok line."""
+    smi = phase_card()
+    phase_build()
+    calls: list = []
+    phase_mesh(calls, smi)
+    per_call = {json.dumps(delta, sort_keys=True) for _, _, delta, _ in calls}
+    print(f"frame mesh: launches per pipeline call {sorted(per_call)}")
+    check(len(per_call) == 1, "launches per pipeline call depend on the batch")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh"]:
+        main_mesh()
+    else:
+        main()

@@ -377,15 +377,19 @@ class MolecularSystem:
         (reference: molecular.py:818)."""
         return Molecule(self.system, str(self.system_id), 0)
 
-    def analyze_molecules(self, device: torch.device | str = "cuda") -> dict:
+    def analyze_molecules(self, device: torch.device | str | list = "cuda") -> dict:
         """Full analysis of every molecule of :meth:`make_modular` as one
-        batch on ``device`` (the card unless the caller asks for the
-        CPU) -> ``{molecule key: properties}``; each :class:`Molecule`'s
-        ``properties`` are filled in place."""
+        batch on ``device`` (every local card unless the caller asks for
+        others or the CPU; see
+        :func:`~pywindow_torch.parallel.mesh.frame_devices`) -> ``{molecule
+        key: properties}``; each :class:`Molecule`'s ``properties`` are
+        filled in place, and its getters analyse on ``device`` (the
+        first device of a list)."""
         if not self.molecules:
             msg = "no molecules; run make_modular() first"
             raise RuntimeError(msg)
         from pywindow_torch.parallel.batch import analyze_batch
+        from pywindow_torch.parallel.mesh import frame_devices
 
         keys = list(self.molecules)
         results = analyze_batch(
@@ -397,7 +401,7 @@ class MolecularSystem:
             mol.MW = props.pop("molecular_weight")
             mol.properties.update(props)
             mol._sync_attributes()
-            mol.device = device
+            mol.device = device if isinstance(device, (str, torch.device)) else frame_devices(device)[0]
             mol._analysed = True
         return {k: self.molecules[k].properties for k in keys}
 

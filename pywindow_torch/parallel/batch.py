@@ -1,11 +1,17 @@
-"""Batched full analysis over many frames or molecules on one device
-(counterpart of ``pywindow_tpu.parallel.batch``).
+"""Batched full analysis over many frames or molecules (counterpart of
+``pywindow_tpu.parallel.batch``).
 
 A chunk of B molecules runs the whole pipeline as one batch with a
 leading frame axis (:func:`pywindow_torch.ops.analysis.run_pipeline`):
 each kernel sees all of the chunk's frames in one launch, so the number
-of launches per chunk does not depend on B.  Chunks are sized to the
-device's free memory by :func:`max_safe_batch`.  A sweep over frames of
+of launches per chunk does not depend on B.  ``device`` names one device
+or several (:func:`~pywindow_torch.parallel.mesh.frame_devices`: an
+unindexed ``"cuda"`` is every local card); over several, a chunk is
+padded to a multiple of the device count with copies of its first
+system, split into contiguous equal shards, and every shard runs the
+pipeline with the same static sizes on its own device, the padding
+sliced off on collect.  Chunks are sized to the devices' free memory by
+:func:`max_safe_batch`.  A sweep over frames of
 one element list (:func:`sweep_stream`, :func:`sweep_uniform`) decodes
 slab k+1 on a thread while the device runs chunk k, moves each chunk's
 coordinates from pinned host slabs on a side stream, and fetches and
@@ -33,7 +39,6 @@ from pywindow_torch.config import (
     AnalysisConfig,
     default_dtype,
     pad_multiple,
-    resolve_device,
 )
 from pywindow_torch.ops import analysis as _analysis
 from pywindow_torch.ops.analysis import (
@@ -52,6 +57,14 @@ from pywindow_torch.ops.encoding import (
 from pywindow_torch.ops.geometry import pairwise_distances
 from pywindow_torch.ops.ray_kernels import MAX_FRAMES
 from pywindow_torch.ops.windows import open_cap
+from pywindow_torch.parallel.mesh import (
+    DeviceSpec,
+    frame_devices,
+    pad_batch_to_devices,
+    ranks_on,
+    shard_bounds,
+    shard_devices,
+)
 from pywindow_torch.profiling import METRICS, stage
 
 logger = logging.getLogger("pywindow_torch")
@@ -119,21 +132,30 @@ def max_safe_batch(
     n_atoms: int,
     max_diameter: float,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
-    device: torch.device | str = "cuda",
+    device: DeviceSpec = "cuda",
     budget: int | None = None,
 ) -> int:
     """Largest batch whose working memory (:func:`frame_bytes`) fits the
-    device's budget (:func:`memory_budget` unless ``budget`` is given),
-    and at most the frames one ray-kernel launch takes
-    (:data:`~pywindow_torch.ops.ray_kernels.MAX_FRAMES`)."""
-    device = resolve_device(device)
-    if budget is None:
-        budget = memory_budget(device)
+    devices' budgets, with at most the frames one ray-kernel launch takes
+    (:data:`~pywindow_torch.ops.ray_kernels.MAX_FRAMES`) on each device.
+
+    Over several devices the batch splits into one equal shard a device;
+    a device's budget (:func:`memory_budget` unless ``budget`` is given)
+    is split between the shards it runs and the ranks of the process
+    group that run on it (:func:`~pywindow_torch.parallel.mesh.ranks_on`),
+    since each of them would otherwise plan with all of its memory (the
+    devices of :func:`~pywindow_torch.parallel.mesh.shard_devices`)."""
+    devices = shard_devices(device)
     n_pad = round_up(max(n_atoms, 1), pad_multiple())
     n_win, _, l1, _ = static_sizes(max_diameter, cfg)
     k = open_cap(n_win, cfg.open_cap_frac) or n_win
-    per_frame = frame_bytes(n_pad, n_win, k, l1, cfg.max_windows, device.type)
-    return max(1, min(MAX_FRAMES, int(budget // per_frame)))
+    per_frame = frame_bytes(n_pad, n_win, k, l1, cfg.max_windows, devices[0].type)
+    per_shard = MAX_FRAMES
+    for dev in set(devices):
+        total = memory_budget(dev) if budget is None else budget
+        sharers = devices.count(dev) * ranks_on(dev)
+        per_shard = min(per_shard, int(total // sharers // per_frame))
+    return max(1, per_shard) * len(devices)
 
 
 def chunk_plan(n_frames: int, c: int) -> list[tuple[int, int]]:
@@ -143,13 +165,11 @@ def chunk_plan(n_frames: int, c: int) -> list[tuple[int, int]]:
     return [(lo, min(lo + c, n_frames)) for lo in range(0, n_frames, c)]
 
 
-def frame_max_diameters(
-    elements: np.ndarray, coords: np.ndarray, device: torch.device | str
-) -> np.ndarray:
+def frame_max_diameters(elements: np.ndarray, coords: np.ndarray, device: DeviceSpec) -> np.ndarray:
     """Exact vdW-corrected maximum diameter of every frame (F, N, 3) of
-    one element list, in float64 on ``device`` (chunked by memory); the
-    sweep pins its sampling sizes from these."""
-    device = resolve_device(device)
+    one element list, in float64 on ``device`` (the first of several;
+    chunked by memory); the sweep pins its sampling sizes from these."""
+    device = frame_devices(device)[0]
     vdw = torch.as_tensor(
         tables.ELEMENT_VDW[tables.element_ids(elements)], dtype=torch.float64,
         device=device,
@@ -164,9 +184,10 @@ def frame_max_diameters(
     return out
 
 
-def _largest_exact_maxd(systems, device: torch.device) -> float:
+def _largest_exact_maxd(systems, device: DeviceSpec) -> float:
     """Exact maximum diameter of the largest member of ``systems``,
-    computed on the device in float64 chunks."""
+    computed on ``device`` (the first of several) in float64 chunks."""
+    device = frame_devices(device)[0]
     best = 0.0
     for lo in range(0, len(systems), 256):
         part = systems[lo : lo + 256]
@@ -178,12 +199,27 @@ def _largest_exact_maxd(systems, device: torch.device) -> float:
     return best
 
 
+def _on_shards(devices: list[torch.device], fn) -> list:
+    """``fn(i, devices[i])`` for every shard i, in turn from the calling
+    thread (a thread a shard was slower on one card and on four: PERF.md
+    §6).  On the card each call runs with its device current and
+    on the calling thread's stream of that device."""
+    if devices[0].type != "cuda":
+        return [fn(i, dev) for i, dev in enumerate(devices)]
+    out = []
+    for i, dev in enumerate(devices):
+        with torch.cuda.stream(torch.cuda.current_stream(dev)):  # makes dev current too
+            out.append(fn(i, dev))
+    return out
+
+
 def dispatch_batch(
     systems: list[tuple[np.ndarray, np.ndarray]],
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     reference_max_diameter: float | None = None,
     pad_atoms: int | None = None,
-    device: torch.device | str = "cuda",
+    device: DeviceSpec = "cuda",
+    span: str | None = None,
 ):
     """Encode one batch and queue its device pipeline; returns a handle
     for :func:`collect_batch` (the work runs asynchronously on the card
@@ -192,17 +228,34 @@ def dispatch_batch(
     The static sizes cover the largest member: ray paths from the
     batch's bound, sampling counts from ``reference_max_diameter``
     (default: the batch's exact largest maximum diameter, reduced on the
-    device).
+    first device).  Over several devices
+    (:func:`~pywindow_torch.parallel.mesh.shard_devices`) every shard
+    takes these sizes and the batch's atom padding: no shard sizes
+    itself.  ``span``: a device span of that name for the batch, booked
+    by the collect (:func:`~pywindow_torch.profiling.settle_shards`).
     """
-    device = resolve_device(device)
-    mols = encode_batch(systems, pad_to=pad_atoms, device=device)
+    b = len(systems)
+    if pad_atoms is None:
+        pad_atoms = round_up(max(max(len(e) for e, _ in systems), 1), pad_multiple())
+    devices = shard_devices(device)
     bounds = [max_dim_bound(e, c) for e, c in systems]
     if reference_max_diameter is None:
-        reference_max_diameter = _largest_exact_maxd(systems, device)
+        reference_max_diameter = _largest_exact_maxd(systems, devices[0])
     n_win, n_avg, l1, l2 = static_sizes(reference_max_diameter, cfg)
     _, _, l1_b, l2_b = static_sizes(max(bounds), cfg)
     sizes = (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
-    return (_analysis.run_pipeline(mols, sizes, cfg), len(systems), cfg, reference_max_diameter)
+    padded = list(systems) + [systems[0]] * (pad_batch_to_devices(b, len(devices)) - b)
+    parts = shard_bounds(len(padded), len(devices))
+
+    def run(i: int, dev: torch.device):
+        lo, hi = parts[i]
+        with profiling.device_stage(span, dev, book=False) as shard:
+            mols = encode_batch(padded[lo:hi], pad_to=pad_atoms, device=dev)
+            flat = _analysis.run_pipeline(mols, sizes, cfg)
+        return flat, (dev, shard)
+
+    shards = _on_shards(devices, run)
+    return ([f for f, _ in shards], b, cfg, reference_max_diameter, span, [s for _, s in shards])
 
 
 def _to_dicts(flat: np.ndarray, cfg: AnalysisConfig) -> list[dict]:
@@ -222,11 +275,15 @@ def _to_dicts(flat: np.ndarray, cfg: AnalysisConfig) -> list[dict]:
 
 
 def collect_batch(handle) -> list[dict]:
-    """Fetch a dispatched batch (one device-to-host transfer) and convert
-    it to properties dicts (with the escalation markers still in)."""
-    flat_dev, b, cfg, _ = handle
+    """Fetch a dispatched batch (one device-to-host transfer a shard),
+    in frame order without the padding, and convert it to properties
+    dicts (with the escalation markers still in)."""
+    flats, b, cfg, _, span, shards = handle
     with stage("sweep_fetch"):
-        flat = flat_dev[:b].cpu().numpy()
+        parts = [f.cpu().numpy() for f in flats]
+        flat = (parts[0] if len(parts) == 1 else np.concatenate(parts))[:b]
+    if span:
+        profiling.settle_shards(span, shards)
     return _to_dicts(flat, cfg)
 
 
@@ -235,11 +292,11 @@ def analyze_batch(
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     reference_max_diameter: float | None = None,
     pad_atoms: int | None = None,
-    device: torch.device | str = "cuda",
+    device: DeviceSpec = "cuda",
 ) -> list[dict]:
     """Analyse many (elements, coordinates) systems as device batches on
-    ``device`` (the card unless the caller asks for the CPU); one
-    reference-schema properties dict per system.
+    ``device`` (every local card unless the caller asks for others or
+    the CPU); one reference-schema properties dict per system.
 
     The sampling-point count is one static for the batch, from
     ``reference_max_diameter`` (default: the largest member's maximum
@@ -250,7 +307,6 @@ def analyze_batch(
     """
     if not systems:
         return []
-    device = resolve_device(device)
     n_max = max(len(e) for e, _ in systems)
     maxd = max(max_dim_bound(e, c) for e, c in systems)
     safe = max_safe_batch(n_max, maxd, cfg, device)
@@ -294,18 +350,28 @@ def sweep_uniform(
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     batch_size: int | None = None,
     reference_max_diameter: float | None = None,
-    device: torch.device | str = "cuda",
+    device: DeviceSpec = "cuda",
+    bound_max_diameter: float | None = None,
+    learn_caps: bool = True,
+    on_rows=None,
 ) -> None:
     """Full-analysis sweep over frames (F, N, 3) that share one element
     list and are decoded already, in chunks of ``batch_size`` frames
     (default: the largest memory-safe batch), through the loop of
     :func:`sweep_stream` with the sizes known up front (no escalation).
 
-    The per-atom fields move to the device once; only each chunk's
+    The per-atom fields move to each device once; only each chunk's
     coordinates move per chunk.  ``maxd_per_frame`` (F,) are the frames'
     exact maximum diameters: their maximum pins the sampling sizes
-    unless ``reference_max_diameter`` is given.  ``on_batch(positions,
-    results)`` receives each chunk's frame positions and dicts, in order.
+    unless ``reference_max_diameter`` is given, and sizes the ray paths
+    unless ``bound_max_diameter`` is given (the largest maximum diameter
+    of a sweep these frames are one part of).  ``learn_caps=False``
+    opens every chunk at ``cfg`` and escalates frame by frame, reading
+    and writing no :data:`LEARNED_CAPS`.  ``on_batch(positions,
+    results)`` receives each chunk's frame positions and dicts, in order;
+    ``on_rows(positions, rows, redone)``, when given, first receives the
+    chunk's packed rows as fetched (markers in) and ``{index in the
+    chunk: dict}`` of the frames whose dicts came from a re-run.
     """
     if coords.shape[0] == 0:
         return
@@ -320,8 +386,9 @@ def sweep_uniform(
     _sweep_frames(
         elements, len(coords), decode_slab, on_batch, cfg, batch_size,
         ref=None if reference_max_diameter is None else float(reference_max_diameter),
-        bound_maxd=float(np.max(maxd)), device=device,
-        preloaded=coords if coords.dtype == np.float64 else None,
+        bound_maxd=float(np.max(maxd) if bound_max_diameter is None else bound_max_diameter),
+        device=device, preloaded=coords if coords.dtype == np.float64 else None,
+        learn_caps=learn_caps, on_rows=on_rows,
     )
 
 
@@ -334,7 +401,7 @@ def sweep_stream(
     batch_size: int | None = None,
     reference_max_diameter: float | None = None,
     size_gate: dict | None = None,
-    device: torch.device | str = "cuda",
+    device: DeviceSpec = "cuda",
 ) -> None:
     """Overlapped decode and device sweep over ``n_frames`` frames that
     share one element list (counterpart of
@@ -382,6 +449,23 @@ def _fetch(flat_dev: torch.Tensor, done, stream) -> np.ndarray:
         return flat_dev.to("cpu").numpy()
 
 
+class _Lane:
+    """One shard position of a sweep's chunks: the per-atom fields on its
+    device and, on the card, its copy and fetch streams."""
+
+    def __init__(self, device: torch.device, host_rows: tuple) -> None:
+        cuda = device.type == "cuda"
+        self.rows = [torch.as_tensor(a, device=device) for a in host_rows]
+        self.fields: dict[int, tuple] = {}
+        self.copy = torch.cuda.Stream(device) if cuda else None
+        self.fetch = torch.cuda.Stream(device) if cuda else None
+
+    def fields_for(self, m: int) -> tuple:
+        if m not in self.fields:
+            self.fields[m] = tuple(r.expand(m, -1).contiguous() for r in self.rows)
+        return self.fields[m]
+
+
 def _sweep_frames(
     elements: np.ndarray,
     n_frames: int,
@@ -391,9 +475,11 @@ def _sweep_frames(
     batch_size: int | None,
     ref: float | None,
     bound_maxd: float | None,
-    device: torch.device | str,
+    device: DeviceSpec,
     size_gate: dict | None = None,
     preloaded: np.ndarray | None = None,
+    learn_caps: bool = True,
+    on_rows=None,
 ) -> None:
     """The chunk loop of :func:`sweep_uniform` and :func:`sweep_stream`
     (counterpart of ``pywindow_tpu.parallel.batch._sweep_frames``).
@@ -404,38 +490,36 @@ def _sweep_frames(
     None to follow the decoded maximum and restart when the sizes grow.
     ``preloaded``: the decoded (n_frames, N, 3) float64 frames, the
     retries' source (and the store itself on a float64 pipeline).
+    ``learn_caps``, ``on_rows``: see :func:`sweep_uniform`.
 
-    One thread decodes slab k+1 (``decode_slab``) while the device runs
+    One thread decodes slab k+1 (``decode_slab``) while the devices run
     chunk k; up to :data:`_PIPELINE_DEPTH` chunks are dispatched ahead of
     the one being collected; one collector thread fetches each chunk's
     packed results, converts them, re-runs the saturated frames and
     calls ``on_batch``, in chunk order.  On the card the store of decoded
     frames is pinned host memory that the decoder fills in one native
-    pass and nothing rewrites, so a chunk's coordinates go from it to
-    the device on a side stream whose event the compute stream waits
+    pass and nothing rewrites, so a shard's coordinates go from it to
+    its device on a side stream whose event the compute stream waits
     on, and the retries read the same store; the chunk loop never
-    synchronises the device.  On the CPU (which the caller asks for) the
+    synchronises a device.  On the CPU (which the caller asks for) the
     store is a plain host array.  A short last chunk runs at its own
-    size.
+    size.  Over several devices each chunk is sharded as in
+    :func:`dispatch_batch`, its padding rows copies of its first frame;
+    ``sweep_step`` books one span a chunk
+    (:func:`~pywindow_torch.profiling.settle_shards`).
     """
     if n_frames == 0:
         return
-    device = resolve_device(device)
-    cuda = device.type == "cuda"
+    devices = shard_devices(device)
+    cuda = devices[0].type == "cuda"
     n = len(elements)
-    dtype = default_dtype(device)
+    dtype = default_dtype(devices[0])
     np_dtype = numpy_dtype(dtype)
     n_pad = round_up(max(n, 1), pad_multiple())
 
-    # constant per-atom fields: one host encode, one transfer
+    # constant per-atom fields: one host encode, one transfer a device
     _, mass, vdw, cov, mask = encode_host(elements, np.zeros((n, 3)), n_pad, np_dtype)
-    rows = [torch.as_tensor(a, device=device) for a in (mass, vdw, cov, mask)]
-    fields_cache: dict[int, tuple] = {}
-
-    def fields_for(m: int) -> tuple:
-        if m not in fields_cache:
-            fields_cache[m] = tuple(r.expand(m, n_pad).contiguous() for r in rows)
-        return fields_cache[m]
+    lanes = [_Lane(dev, (mass, vdw, cov, mask)) for dev in devices]
 
     # decoded frames accumulate in the pipeline dtype (a restart never
     # decodes again), pinned on the card; the retries read the float64
@@ -447,6 +531,7 @@ def _sweep_frames(
         store = store_t.numpy()
     else:
         store = preloaded
+        store_t = torch.as_tensor(store)
     retry_src = store if preloaded is None else preloaded
     slab_key = "out64" if np_dtype == np.float64 else "out32"
     maxd_pf = np.empty(n_frames, dtype=np.float64)
@@ -463,7 +548,7 @@ def _sweep_frames(
     # sticky cap escalation (see finish): learned per system and base
     # config for the life of the process, kept across restarts
     esc_key = (hash(np.asarray(elements).tobytes()), n_pad, cfg)
-    cfg_live = {"cfg": LEARNED_CAPS.get(esc_key, cfg)}
+    cfg_live = {"cfg": LEARNED_CAPS.get(esc_key, cfg) if learn_caps else cfg}
 
     def current_sizes() -> tuple:
         run_max = bound_maxd if not streaming else float(np.max(maxd_pf[: state["decoded"]]))
@@ -472,10 +557,6 @@ def _sweep_frames(
         # path lengths cover the largest member even under a smaller pin
         _, _, l1_b, l2_b = static_sizes(run_max, cfg)
         return pin, (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
-
-    compute = torch.cuda.current_stream(device) if cuda else None
-    copy_stream = torch.cuda.Stream(device) if cuda else None
-    fetch_stream = torch.cuda.Stream(device) if cuda else None
 
     while True:  # a streamed sweep restarts when the sizes escalate
         if state["decoded"] == 0:
@@ -490,34 +571,52 @@ def _sweep_frames(
 
         def dispatch(lo: int, hi: int):
             m = hi - lo
-            with stage("sweep_h2d"):
-                if cuda:
-                    with torch.cuda.stream(copy_stream):
-                        tight = store_t[lo:hi].to(device, non_blocking=True)
-                        copied = torch.cuda.Event()
-                        copied.record(copy_stream)
-                    compute.wait_event(copied)
-                    tight.record_stream(compute)
-                else:
-                    tight = torch.as_tensor(store[lo:hi])
             chunk_cfg = cfg_live["cfg"]
-            with stage("sweep_dispatch"), profiling.device_stage("sweep_step", device) as span:
-                coords = torch.cat([tight, tight.new_full((m, n_pad - n, 3), FAR_AWAY)], 1)
-                flat = _analysis.run_pipeline(
-                    MolArrays(coords, *fields_for(m)), sizes, chunk_cfg
-                )
-            done = None
-            if cuda:
-                done = torch.cuda.Event()
-                done.record(compute)
-            return flat, chunk_cfg, done, span
+            shards = shard_bounds(pad_batch_to_devices(m, len(lanes)), len(lanes))
+
+            def enqueue(i: int, dev: torch.device):
+                lane, (a, b) = lanes[i], shards[i]
+                # rows [a, b) of the chunk: stored frames, then copies of
+                # the chunk's first frame past its end
+                rows = slice(lo + min(a, m), lo + min(b, m))
+                reps = max(0, b - max(a, m))
+                with stage("sweep_h2d"):
+                    if cuda:
+                        compute = torch.cuda.current_stream(dev)
+                        with torch.cuda.stream(lane.copy):
+                            tight = store_t[rows].to(dev, non_blocking=True)
+                            first = store_t[lo : lo + 1].to(dev, non_blocking=True) if reps else None
+                            copied = torch.cuda.Event()
+                            copied.record(lane.copy)
+                        compute.wait_event(copied)
+                        for t in (tight, first):
+                            if t is not None:
+                                t.record_stream(compute)
+                    else:
+                        tight = store_t[rows]
+                        first = store_t[lo : lo + 1]
+                with stage("sweep_dispatch"), profiling.device_stage("sweep_step", dev, book=False) as span:
+                    if reps:
+                        tight = torch.cat([tight, first.expand(reps, -1, -1)])
+                    coords = torch.cat([tight, tight.new_full((b - a, n_pad - n, 3), FAR_AWAY)], 1)
+                    flat = _analysis.run_pipeline(
+                        MolArrays(coords, *lane.fields_for(b - a)), sizes, chunk_cfg
+                    )
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(compute)
+                return flat, done, (dev, span)
+
+            return _on_shards(devices, enqueue), chunk_cfg
 
         def finish(lo: int, hi: int, handle) -> None:
-            flat_dev, chunk_cfg, done, span = handle
+            parts, chunk_cfg = handle
             with stage("sweep_fetch"):
-                flat = _fetch(flat_dev, done, fetch_stream)
-            span.settle()
-            del flat_dev, handle
+                got = [_fetch(f, done, lane.fetch) for lane, (f, done, _) in zip(lanes, parts)]
+                flat = got[0] if len(got) == 1 else np.concatenate(got)[: hi - lo]
+            profiling.settle_shards("sweep_step", [span for _, _, span in parts])
+            del parts, handle
             results = _to_dicts(flat, chunk_cfg)
             esc: dict = {}
             results = retry_saturated_windows(
@@ -525,6 +624,9 @@ def _sweep_frames(
                 results, chunk_cfg, escalation_sink=esc,
                 reference_max_diameter=pin, device=device,
             )
+            positions = np.arange(lo, hi, dtype=np.int64)
+            if on_rows is not None:
+                on_rows(positions, flat, {i: results[i] for i in esc["redone"]})
             # sticky escalation for later chunks, only when the marker is
             # endemic (a majority of the chunk): a stray frame is cheaper
             # through the per-chunk retry it just took.  A chunk already
@@ -543,11 +645,11 @@ def _sweep_frames(
                     nxt = dataclasses.replace(nxt, max_windows=w)
             # memory guard: keep the per-chunk retry when the escalated
             # config no longer fits a chunk
-            if nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
+            if learn_caps and nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
                 cfg_live["cfg"] = nxt
                 LEARNED_CAPS.put(esc_key, nxt)
             with stage("sweep_on_batch"):
-                on_batch(np.arange(lo, hi, dtype=np.int64), results)
+                on_batch(positions, results)
 
         escalated = False
         with (
@@ -627,40 +729,37 @@ def retry_saturated_windows(
       :data:`~pywindow_torch.config.MAX_WINDOWS_CEILING`).
 
     Pops the markers from every result; ``escalation_sink`` receives the
-    counts per marker (``open_overflow``, ``budget``, ``window_sat``).
+    counts per marker (``open_overflow``, ``budget``, ``window_sat``) and
+    the sorted indices whose results a re-run replaced (``redone``).
     """
-    over = [i for i, r in enumerate(results) if r.pop("_open_cap_overflow", False)]
-    if escalation_sink is not None:
-        escalation_sink["open_overflow"] = len(over)
-    if over:
-        cfg2 = dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac)
-        redo = analyze_batch([systems[i] for i in over], cfg2, **analyze_kwargs)
-        for i, r in zip(over, redo):
+    redone: set = set()
+
+    def rerun(idxs: list[int], cfg2: AnalysisConfig) -> None:
+        redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
+        for i, r in zip(idxs, redo):
             results[i] = r
+        redone.update(idxs)
+
+    over = [i for i, r in enumerate(results) if r.pop("_open_cap_overflow", False)]
+    if over:
+        rerun(over, dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac))
 
     budget = [i for i, r in enumerate(results) if r.pop("_opt_budget_exceeded", False)]
-    if escalation_sink is not None:
-        escalation_sink["budget"] = len(budget)
     if budget and cfg.fast_budgets:
-        cfg2 = dataclasses.replace(cfg, fast_budgets=False)
-        redo = analyze_batch([systems[i] for i in budget], cfg2, **analyze_kwargs)
-        for i, r in zip(budget, redo):
-            results[i] = r
+        rerun(budget, dataclasses.replace(cfg, fast_budgets=False))
 
     idxs = [i for i, r in enumerate(results) if r.pop("_window_cap_saturated", False)]
-    if escalation_sink is not None:
-        escalation_sink["window_sat"] = len(idxs)
-    if not idxs:
-        return results
-    if cfg.max_windows >= MAX_WINDOWS_CEILING:
+    if idxs and cfg.max_windows >= MAX_WINDOWS_CEILING:
         logger.warning(
             "%d molecule(s) still saturate max_windows=%d at the escalation "
             "ceiling; raise AnalysisConfig.max_windows",
             len(idxs), cfg.max_windows,
         )
-        return results
-    cfg2 = dataclasses.replace(cfg, max_windows=2 * cfg.max_windows)
-    redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
-    for i, r in zip(idxs, redo):
-        results[i] = r
+    elif idxs:
+        rerun(idxs, dataclasses.replace(cfg, max_windows=2 * cfg.max_windows))
+    if escalation_sink is not None:
+        escalation_sink.update(
+            open_overflow=len(over), budget=len(budget), window_sat=len(idxs),
+            redone=sorted(redone),
+        )
     return results

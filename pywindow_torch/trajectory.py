@@ -45,8 +45,8 @@ from mmap import ACCESS_READ, mmap
 import numpy as np
 import torch
 
-from pywindow_torch import native, profiling, tables
-from pywindow_torch.config import DEFAULT_CONFIG, pad_multiple, resolve_device
+from pywindow_torch import native, tables
+from pywindow_torch.config import DEFAULT_CONFIG, pad_multiple
 from pywindow_torch.io.outputs import Output, to_list
 from pywindow_torch.molecular import MolecularSystem
 from pywindow_torch.ops.analysis import max_dim_bound, max_dim_host, static_sizes
@@ -57,6 +57,7 @@ from pywindow_torch.ops.cell import (
 )
 from pywindow_torch.ops.encoding import round_up
 from pywindow_torch.parallel import batch
+from pywindow_torch.parallel.mesh import DeviceSpec, frame_devices
 from pywindow_torch.profiling import stage
 
 #: frames per chunk on the generic path (bounds decoded-frame memory)
@@ -352,11 +353,13 @@ class Trajectory:
         autosave: pathlib.Path | str | None = None,
         autosave_every: int = 10,
         exact_sizes: bool = False,
-        device: torch.device | str = "cuda",
+        device: DeviceSpec = "cuda",
     ) -> None:
-        """Analyse frames as device batches on ``device`` (the card unless
-        the caller asks for the CPU); results land in
-        :attr:`analysis_output` with the schema of :meth:`analysis`.
+        """Analyse frames as device batches on ``device`` (every local
+        card unless the caller asks for others or the CPU; see
+        :func:`~pywindow_torch.parallel.mesh.frame_devices`); results
+        land in :attr:`analysis_output` with the schema of
+        :meth:`analysis`.
 
         Frames already analysed are skipped unless ``override``, which
         replaces their entries whole.  ``batch_size``: frames per chunk
@@ -371,7 +374,7 @@ class Trajectory:
         :meth:`save_analysis` writes every ``autosave_every`` chunks and
         at the end; :meth:`load_analysis` and a rerun resume from it.
         """
-        device = resolve_device(device)
+        frame_devices(device)  # raises before any work when no card is there
         todo = self._resolve_frames(frames)
         if not override:
             todo = [f for f in todo if f not in self.analysis_output]
@@ -577,14 +580,12 @@ class Trajectory:
             safe = batch.max_safe_batch(p, max(bounds[i] for i in idxs), device=device)
             for lo in range(0, len(idxs), safe):
                 part = idxs[lo : lo + safe]
-                with profiling.device_stage("sweep_step", device) as span:
-                    handle = batch.dispatch_batch(
-                        [systems[i] for i in part], reference_max_diameter=pin,
-                        pad_atoms=p, device=device,
-                    )
+                handle = batch.dispatch_batch(
+                    [systems[i] for i in part], reference_max_diameter=pin,
+                    pad_atoms=p, device=device, span="sweep_step",
+                )
                 for i, r in zip(part, batch.collect_batch(handle)):
                     results[i] = r
-                span.settle()  # the batch's device time, read after its fetch
         return results, pin
 
     # -- persistence -------------------------------------------------------

@@ -32,13 +32,14 @@ def test_import_pulls_in_neither_jax_nor_triton(tmp_path):
 
 
 def test_new_modules_pull_in_neither_jax_nor_triton(tmp_path):
-    """The public surface of the later slice (utilities, the command
-    line, the streamed sweep, profiling) imports no JAX, Triton or JAX
-    package module and builds neither kernels nor native modules."""
+    """The public surface of the later slices (utilities, the command
+    line, the streamed sweep, profiling, the frame mesh and the
+    multi-process sweep) imports no JAX, Triton or JAX package module
+    and builds neither kernels nor native modules."""
     code = (
         "import sys\n"
         "import pywindow_torch.utilities, pywindow_torch.__main__\n"
-        "from pywindow_torch.parallel import batch\n"
+        "from pywindow_torch.parallel import batch, distributed, mesh\n"
         "from pywindow_torch import native, profiling, trajectory\n"
         "from pywindow_torch.ops import cluster, encoding, geometry\n"
         "bad = [m for m in ('jax', 'triton', 'pywindow_tpu') if m in sys.modules]\n"

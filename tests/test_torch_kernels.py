@@ -940,3 +940,109 @@ def test_sweep_stream_on_the_card_equals_sweep_uniform(cuda, scaled):
             assert (a is None) == (b is None)
             if b is not None:
                 np.testing.assert_array_equal(a, b)
+
+
+def _assert_props_identical(got: dict, ref: dict) -> None:
+    """Two properties dicts: the same keys, every value bit for bit."""
+    assert sorted(got) == sorted(ref)
+    for key, r in ref.items():
+        g = got[key]
+        pairs = [(g[k], r[k], f"{key}.{k}") for k in r] if isinstance(r, dict) else [(g, r, key)]
+        for a, b, name in pairs:
+            assert (a is None) == (b is None), name
+            if b is not None:
+                np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_two_shards_on_one_card_equal_one_shard(cuda):
+    """analyze_batch of 5 frames and sweep_uniform of 22 frames in chunks
+    of 4 (the last of 2) over two shards on cuda:0 equal the one-device
+    runs bit for bit."""
+    from pywindow_torch.ops.analysis import max_dim_host
+    from pywindow_torch.parallel import batch
+
+    fr = pt.DLPOLY(DATA / "HISTORY_singlemol_short").get_frames(
+        list(range(20)), swap_atoms={"he": "H"}, forcefield="OPLS"
+    )
+    elements = np.asarray(fr[0].system["elements"])
+    coords = np.stack([fr[k % 20].system["coordinates"] for k in range(22)])
+    two = ["cuda:0", "cuda:0"]
+    systems = [(elements, c) for c in coords[:5]]
+    for got, ref in zip(batch.analyze_batch(systems, device=two), batch.analyze_batch(systems, device="cuda:0")):
+        _assert_props_identical(got, ref)
+    maxd = np.array([max_dim_host(elements, c) for c in coords])
+    runs = []
+    for device in (two, "cuda:0"):
+        got: dict = {}
+        batch.LEARNED_CAPS._caps.clear()
+        batch.sweep_uniform(
+            elements, coords, maxd, lambda pos, res, got=got: got.update(zip(pos.tolist(), res)),
+            batch_size=4, device=device,
+        )
+        runs.append(got)
+    assert sorted(runs[0]) == sorted(runs[1]) == list(range(22))
+    for f in runs[1]:
+        _assert_props_identical(runs[0][f], runs[1][f])
+
+
+_RANK_WORKER = r"""
+import pickle, sys
+import torch
+import pywindow_torch as pt
+from pywindow_torch.parallel import distributed
+
+rank, port, path, out = sys.argv[1:5]
+distributed.initialize(f"127.0.0.1:{port}", 2, int(rank), backend="gloo")
+traj = pt.DLPOLY(path)
+distributed.analysis_batched_distributed(
+    traj, swap_atoms={"he": "H"}, forcefield="OPLS", device="cuda:0", batch_size=8
+)
+assert "jax" not in sys.modules
+with open(out, "wb") as fh:
+    pickle.dump(traj.analysis_output, fh)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_gloo_ranks_on_one_card_equal_the_single_process_sweep(cuda, tmp_path):
+    """Two gloo ranks on the first card sweep the 20 fixture frames (10
+    each); both hold all 20, equal to this process's analysis_batched on
+    cuda:0 bit for bit.  A rank that fails or runs past 300 s fails."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    history = DATA / "HISTORY_singlemol_short"
+    root = pathlib.Path(__file__).resolve().parent.parent
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs, outs = [], []
+    for r in range(2):
+        outs.append(tmp_path / f"rank_{r}.pkl")
+        env = {**os.environ, "PYTHONPATH": str(root), "CUDA_VISIBLE_DEVICES": first,
+               "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2"}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_WORKER, str(r), str(port), str(history), str(outs[r])],
+            cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    single = pt.DLPOLY(history)
+    single.analysis_batched(swap_atoms={"he": "H"}, forcefield="OPLS", batch_size=8, device="cuda:0")
+    for out in outs:
+        with out.open("rb") as fh:
+            got = pickle.load(fh)
+        assert sorted(got) == sorted(single.analysis_output) == list(range(20))
+        for f in got:
+            _assert_props_identical(got[f]["0"], single.analysis_output[f]["0"])

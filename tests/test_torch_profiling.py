@@ -94,6 +94,27 @@ def test_sweep_stages_when_on(profiling_on):
     assert METRICS.counters["molecules_analysed"] == 2
 
 
+def test_sharded_sweep_books_one_device_span_a_chunk(profiling_on):
+    """Two frames in one chunk over two shards: the shards' enqueues are
+    timed each, the chunk's device time is one span (the shards on one
+    device add up), as the generic path's batch is."""
+    el, co = load_xyz(DATA / "YAQHOQ.xyz")
+    coords = np.stack([co, co + 0.01])
+
+    def decode_slab(lo, hi, out64=None, out32=None):
+        (out64 if out64 is not None else out32)[...] = coords[lo:hi]
+        return np.full(hi - lo, 10.6)
+
+    batch.sweep_stream(el, 2, decode_slab, lambda pos, res: None, batch_size=2, device=["cpu", "cpu"])
+    calls = METRICS.snapshot()["stage_calls"]
+    assert calls["sweep_dispatch"] == 2
+    assert calls["sweep_step"] == 1
+    METRICS.reset()
+    handle = batch.dispatch_batch([(el, c) for c in coords], device=["cpu", "cpu"], span="sweep_step")
+    batch.collect_batch(handle)
+    assert METRICS.snapshot()["stage_calls"]["sweep_step"] == 1
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(tmp_path / "tr"):
         torch.cdist(torch.ones(64, 3), torch.zeros(32, 3)).amin(-1)
