@@ -126,7 +126,13 @@ result line):
    rank a card.
    Every leg equals (a)'s ``cuda:0`` run bit for bit on every value of
    every frame; frames/s beside the card's name and power limit.
-   ``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 12 alone.
+   ``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 12 alone;
+13. the port's benchmark, ``python -m pywindow_torch bench``, in a
+   subprocess at full size after phase 12 (``bench_torch.py``: its own
+   golden gate, CC3 kernel and end-to-end frames/s, MIBQAR and REYMAL,
+   the six pipeline kernels' device ms on its CC3 batch): exit code 0,
+   the headline line last and under 1,000 bytes, the gate passed and
+   all six pipeline kernels launched; its rates and headline printed.
 
 Phases 4-6, 8, 9, 10, 11 and 12's two-shard run are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
@@ -146,6 +152,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -300,13 +307,19 @@ def molecule(name: str):
     return pt.MolecularSystem.load_file(structure(name)).system_to_molecule()
 
 
-def phase_card() -> str:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_card() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    smi = nvidia_smi()
     print(f"card: {smi}")
     print(
         f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -380,6 +393,29 @@ def record_inputs() -> dict[str, list[tuple[str, tuple, dict]]]:
 
     seen: dict[str, list] = {k: [] for k in KERNELS}
     current = [""]
+    with recording(seen, current):
+        for name in ("PUDXES", "REYMAL"):
+            current[0] = name
+            molecule(name).full_analysis()
+        current[0] = SWEEP_LABEL
+        pt.DLPOLY(synth_history(SWEEP_FRAMES)).analysis_batched(
+            frames=list(range(SWEEP_CHUNK)), swap_atoms={"he": "H"}, forcefield="OPLS",
+            batch_size=SWEEP_CHUNK,
+        )
+        current[0] = PERIODIC_LABEL
+        pt.PDB(synth_periodic(PERIODIC_FRAMES)).analysis_batched(
+            frames=list(range(PERIODIC_CHUNK)), batch_size=PERIODIC_CHUNK, modular=True,
+            rebuild=True, forcefield="DLF",
+        )
+    seen["clearance_min"] = clearance_inputs() + clearance_adversarial()
+    return seen
+
+
+@contextlib.contextmanager
+def recording(seen: dict[str, list], current: list[str]):
+    """Inside the block every kernel wrapper keeps a copy of its inputs:
+    ``(current[0], args, kwargs)`` appended to ``seen[kernel]`` for each
+    call, before the call runs."""
     originals = []
 
     def recorder(fn, key):
@@ -394,24 +430,10 @@ def record_inputs() -> dict[str, list[tuple[str, tuple, dict]]]:
         for module, attr, key, _ in wrappers():
             originals.append((module, attr, getattr(module, attr)))
             setattr(module, attr, recorder(getattr(module, attr), key))
-        for name in ("PUDXES", "REYMAL"):
-            current[0] = name
-            molecule(name).full_analysis()
-        current[0] = SWEEP_LABEL
-        pt.DLPOLY(synth_history(SWEEP_FRAMES)).analysis_batched(
-            frames=list(range(SWEEP_CHUNK)), swap_atoms={"he": "H"}, forcefield="OPLS",
-            batch_size=SWEEP_CHUNK,
-        )
-        current[0] = PERIODIC_LABEL
-        pt.PDB(synth_periodic(PERIODIC_FRAMES)).analysis_batched(
-            frames=list(range(PERIODIC_CHUNK)), batch_size=PERIODIC_CHUNK, modular=True,
-            rebuild=True, forcefield="DLF",
-        )
+        yield
     finally:
         for module, attr, fn in originals:
             setattr(module, attr, fn)
-    seen["clearance_min"] = clearance_inputs() + clearance_adversarial()
-    return seen
 
 
 def clearance_inputs() -> list[tuple[str, tuple, dict]]:
@@ -1458,6 +1480,8 @@ main_path.launches = {}
 
 
 def gate_errors(props, gold) -> dict[str, float]:
+    """Absolute errors of one analysis against its goldens, by quantity;
+    windows missing or of another count are an infinite error."""
     errs = {}
     if "pore" in gold:
         errs["pore"] = abs(props["pore_diameter"]["diameter"] - gold["pore"])
@@ -1469,13 +1493,11 @@ def gate_errors(props, gold) -> dict[str, float]:
         errs["max"] = abs(props["maximum_diameter"]["diameter"] - gold["max"])
     if "windows" in gold:
         wins = props["windows"]["diameters"]
-        check(wins is not None, "no windows")
-        wins = np.sort(np.asarray(wins, dtype=np.float64))
-        check(
-            len(wins) == len(gold["windows"]),
-            f"{len(wins)} windows, expected {len(gold['windows'])}",
-        )
-        errs["windows"] = float(np.abs(wins - np.sort(gold["windows"])).max())
+        if wins is None or len(wins) != len(gold["windows"]):
+            errs["windows"] = math.inf
+        else:
+            wins = np.sort(np.asarray(wins, dtype=np.float64))
+            errs["windows"] = float(np.abs(wins - np.sort(gold["windows"])).max())
     return errs
 
 
@@ -1491,19 +1513,29 @@ def check_finite(name: str, props: dict) -> None:
             )
 
 
-def phase_gate() -> None:
+def gate_report(device="cuda") -> dict:
+    """The 7-system golden gate: ``full_analysis()`` of each system of
+    :data:`GOLD` on ``device``, its errors (:func:`gate_errors`), worst
+    error and seconds, and whether every system is within :data:`TOL`.
+    A value that is not finite raises."""
+    systems = {}
     for name, gold in GOLD.items():
         t0 = time.perf_counter()
-        props = molecule(name).full_analysis()
+        props = molecule(name).full_analysis(device=device)
         seconds = time.perf_counter() - t0
-        errs = gate_errors(props, gold)
         check_finite(name, props)
-        worst = max(errs.values())
+        errs = {k: float(v) for k, v in gate_errors(props, gold).items()}
+        systems[name] = {"worst": max(errs.values()), "errors": errs, "seconds": seconds}
+    return {"tol": TOL, "pass": all(s["worst"] < TOL for s in systems.values()), "systems": systems}
+
+
+def phase_gate() -> None:
+    for name, s in gate_report()["systems"].items():
         print(
-            f"gate {name}: worst abs err {worst:.3e} A (tol {TOL}) "
-            f"{json.dumps({k: float(v) for k, v in errs.items()})}, {seconds:.3f} s"
+            f"gate {name}: worst abs err {s['worst']:.3e} A (tol {TOL}) "
+            f"{json.dumps(s['errors'])}, {s['seconds']:.3f} s"
         )
-        check(worst < TOL, f"{name}: error {worst} >= {TOL}")
+        check(s["worst"] < TOL, f"{name}: error {s['worst']} >= {TOL}")
 
 
 def phase_batched_gate() -> None:
@@ -1526,26 +1558,42 @@ def phase_batched_gate() -> None:
     check(worst < TOL, f"batched gate: error {worst} >= {TOL}")
 
 
+def synth_file(stem: str, n_frames: int, source: pathlib.Path, write) -> pathlib.Path:
+    """A synthesised trajectory under build/, named by ``stem``, its frame
+    count and a hash of its ``source`` fixture, and written once:
+    ``write(fh)`` fills a temporary file that is then renamed, so a file
+    of that name is whole and was made from this very fixture."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    out = ROOT / "build" / f"{stem}_{n_frames}_{digest}"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.part")
+    with tmp.open("w") as fh:
+        write(fh)
+    tmp.replace(out)
+    return out
+
+
 def synth_history(n_frames: int) -> pathlib.Path:
     """An n-frame HISTORY cycling the 20-frame CC3 fixture with monotone
     timesteps rewritten (bench.py:201-227), under build/."""
-    out = ROOT / "build" / f"HISTORY_cc3_{n_frames}"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    lines = HISTORY.read_text().split("\n")
-    starts = [i for i, ln in enumerate(lines) if ln.startswith("timestep")]
-    header = "\n".join(lines[: starts[0]]) + "\n"
-    frames = []
-    for i, s in enumerate(starts):
-        e = starts[i + 1] if i + 1 < len(starts) else len(lines)
-        frames.append("\n".join(lines[s:e]).rstrip("\n") + "\n")
-    with out.open("w") as fh:
-        fh.write(header)
+
+    def write(fh) -> None:
+        lines = HISTORY.read_text().split("\n")
+        starts = [i for i, ln in enumerate(lines) if ln.startswith("timestep")]
+        fh.write("\n".join(lines[: starts[0]]) + "\n")
+        frames = []
+        for i, s in enumerate(starts):
+            e = starts[i + 1] if i + 1 < len(starts) else len(lines)
+            frames.append("\n".join(lines[s:e]).rstrip("\n") + "\n")
         for k in range(n_frames):
             head, _, body = frames[k % len(frames)].partition("\n")
             parts = head.split()
             parts[1] = str(25 * k)
             fh.write(" ".join(parts) + "\n" + body)
-    return out
+
+    return synth_file("HISTORY_cc3", n_frames, HISTORY, write)
 
 
 @contextlib.contextmanager
@@ -2745,6 +2793,43 @@ def phase_mesh(pipeline_calls: list, smi: str) -> None:
         profiling.enable(was_on)
 
 
+#: seconds the bench subprocess of phase 13 may take
+BENCH_TIMEOUT = 600
+
+
+def phase_bench() -> None:
+    """Phase 13: ``python -m pywindow_torch bench`` in a subprocess at full
+    size, on the card: exit code 0, its last line the compact headline
+    (under 1,000 bytes), the line before it the full record, whose gate
+    passed and whose CC3 batch launched all six pipeline kernels."""
+    torch.cuda.empty_cache()  # the bench sizes its batches by free memory
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pywindow_torch", "bench"], cwd=ROOT, capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench: exit code {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) >= 2, f"bench: {len(lines)} lines of output")
+    check(len(lines[-1].encode()) < 1000, f"bench: a headline of {len(lines[-1].encode())} bytes")
+    head, record = json.loads(lines[-1]), json.loads(lines[-2])
+    check(head["value"] == record["value"] > 0, f"bench: headline {head}")
+    check(record["gate"]["pass"], "bench: the gate failed")
+    launched = {k["name"]: k["launches"] for k in record["kernels"]}
+    missing = [k for k in PIPELINE_KERNELS if launched.get(k, 0) == 0]
+    check(not missing, f"bench: {missing} not launched")
+    rows = {
+        row: [round(record[row][k], 1) for k in ("fps_median", "fps_min", "fps_max")]
+        for row in ("kernel", "e2e", "mibqar_kernel", "reymal_kernel", "mibqar_e2e")
+    }
+    print(
+        f"bench: {seconds:.1f} s (subprocess); frames/s median, min, max {json.dumps(rows)}; "
+        f"launches per pipeline call {json.dumps(launched)}"
+    )
+    print(f"bench headline: {lines[-1]}")
+
+
 def main() -> None:
     smi = phase_card()
     phase_build()
@@ -2764,6 +2849,7 @@ def main() -> None:
     elements, coords = phase_sweep_routes(traj, maxd)
     phase_sweep_escalation(elements, coords)
     phase_mesh(calls, smi)
+    phase_bench()
     phase_profile(pin)
     with main_path("periodic system", calls):
         phase_periodic_system()

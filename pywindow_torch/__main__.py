@@ -11,6 +11,10 @@ Commands:
       [--exact-sizes] [--modular] [--rebuild] [--forcefield FF]
       [--swap k=v] [--autosave-every N] [-o OUT.json] [--device cuda|cpu]
       Batched analysis of an MD trajectory.
+  bench [--device cuda|cpu]
+      Run the throughput benchmark, ``bench_torch.py`` of the source
+      checkout: the full record on one JSON line, then a compact
+      headline line.
 
 Everything runs on the card (``--device cuda``, the default) and raises
 when there is none; ``--device cpu`` asks for the CPU.
@@ -94,6 +98,28 @@ def cmd_trajectory(args) -> None:
         _dump(traj.analysis_output, None)
 
 
+#: the benchmark script, at the root of a source checkout
+BENCH = pathlib.Path(__file__).resolve().parent.parent / "bench_torch.py"
+
+
+def cmd_bench(args) -> None:
+    import runpy
+
+    if not BENCH.is_file():
+        msg = (
+            "the benchmark (bench_torch.py + its trajectory fixture) ships "
+            "with the source repository, not the installed package; "
+            "run it from a checkout"
+        )
+        raise SystemExit(msg)
+    argv = sys.argv
+    sys.argv = [str(BENCH), "--device", str(args.device)]
+    try:
+        runpy.run_path(str(BENCH), run_name="__main__")
+    finally:
+        sys.argv = argv
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         prog="python -m pywindow_torch",
@@ -124,6 +150,10 @@ def main(argv=None) -> None:
     p.add_argument("-o", "--output")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_trajectory)
+
+    p = sub.add_parser("bench", help="run the throughput benchmark")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     from pywindow_torch.config import resolve_device

@@ -253,6 +253,16 @@ def static_sizes(
     return n_win, n_avg, ((l1 + 7) // 8) * 8, ((l2 + 7) // 8) * 8
 
 
+def batch_sizes(pin: float, largest: float, cfg: AnalysisConfig) -> tuple[int, int, int, int]:
+    """Static sizes of a batch: the sampling counts from the pin (the
+    diameter the batch is sampled at), the path lengths covering
+    ``largest`` too (the largest member, or a bound on it), so that no
+    member's rays are cut short under a smaller pin."""
+    n_win, n_avg, l1, l2 = static_sizes(pin, cfg)
+    _, _, l1_b, l2_b = static_sizes(largest, cfg)
+    return n_win, n_avg, max(l1, l1_b), max(l2, l2_b)
+
+
 def max_dim_host(elements: np.ndarray, coordinates: np.ndarray) -> float:
     """Maximum vdW-corrected diameter in host float64 numpy (row-chunked),
     used only to size the sampling statically."""

@@ -42,6 +42,7 @@ from pywindow_torch.config import (
 )
 from pywindow_torch.ops import analysis as _analysis
 from pywindow_torch.ops.analysis import (
+    batch_sizes,
     max_dim_bound,
     static_sizes,
     to_properties_dicts_bulk,
@@ -241,9 +242,7 @@ def dispatch_batch(
     bounds = [max_dim_bound(e, c) for e, c in systems]
     if reference_max_diameter is None:
         reference_max_diameter = _largest_exact_maxd(systems, devices[0])
-    n_win, n_avg, l1, l2 = static_sizes(reference_max_diameter, cfg)
-    _, _, l1_b, l2_b = static_sizes(max(bounds), cfg)
-    sizes = (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+    sizes = batch_sizes(reference_max_diameter, max(bounds), cfg)
     padded = list(systems) + [systems[0]] * (pad_batch_to_devices(b, len(devices)) - b)
     parts = shard_bounds(len(padded), len(devices))
 
@@ -553,10 +552,7 @@ def _sweep_frames(
     def current_sizes() -> tuple:
         run_max = bound_maxd if not streaming else float(np.max(maxd_pf[: state["decoded"]]))
         pin = ref if ref is not None else run_max
-        n_win, n_avg, l1, l2 = static_sizes(pin, cfg)
-        # path lengths cover the largest member even under a smaller pin
-        _, _, l1_b, l2_b = static_sizes(run_max, cfg)
-        return pin, (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+        return pin, batch_sizes(pin, run_max, cfg)
 
     while True:  # a streamed sweep restarts when the sizes escalate
         if state["decoded"] == 0:

@@ -35,7 +35,7 @@ import torch.distributed as dist
 
 from pywindow_torch import native
 from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
-from pywindow_torch.ops.analysis import static_sizes, to_properties_dicts_bulk
+from pywindow_torch.ops.analysis import batch_sizes, to_properties_dicts_bulk
 from pywindow_torch.parallel import batch, mesh
 from pywindow_torch.parallel.mesh import DeviceSpec, frame_devices
 from pywindow_torch.profiling import stage
@@ -254,9 +254,7 @@ def analysis_batched_distributed(
     _build_barrier("sweep", devices)
     global_max = _max_over_ranks(float(maxd.max()), devices[0])
     ref = global_max if reference_max_diameter is None else float(reference_max_diameter)
-    n_win, n_avg, l1, l2 = static_sizes(ref, cfg)
-    _, _, l1_b, l2_b = static_sizes(global_max, cfg)
-    sizes = (n_win, n_avg, max(l1, l1_b), max(l2, l2_b))
+    sizes = batch_sizes(ref, global_max, cfg)
 
     results: list = [None] * len(mine)
     chunks: list = []  # (positions, rows) of every chunk

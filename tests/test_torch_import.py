@@ -61,3 +61,29 @@ def test_new_modules_pull_in_neither_jax_nor_triton(tmp_path):
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_bench_pulls_in_neither_jax_nor_triton(tmp_path):
+    """The port's benchmark script (and ``chip_smoke``, which it imports)
+    imports no JAX, Triton or JAX package module and builds nothing."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    code = (
+        "import runpy, sys\n"
+        f"bench = runpy.run_path({str(root / 'bench_torch.py')!r}, run_name='bench_torch')\n"
+        "assert 'chip_smoke' in sys.modules and callable(bench['main'])\n"
+        "bad = [m for m in ('jax', 'triton', 'pywindow_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "from pywindow_torch import native\n"
+        "from pywindow_torch.ops import _cuda\n"
+        "assert _cuda.load_extension.cache_info().currsize == 0\n"
+        "assert native.lib.cache_info().currsize == 0\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=tmp_path,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
