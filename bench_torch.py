@@ -356,7 +356,7 @@ def main(argv: list[str] | None = None, **sizes) -> None:
     rows' frame counts and repetitions (the keyword arguments of
     :func:`run`)."""
     parser = argparse.ArgumentParser(prog="bench_torch.py", description=__doc__.split("\n")[0])
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device")
     args = parser.parse_args(argv)
     from pywindow_torch.config import resolve_device
 

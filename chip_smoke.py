@@ -132,9 +132,29 @@ result line):
    golden gate, CC3 kernel and end-to-end frames/s, MIBQAR and REYMAL,
    the six pipeline kernels' device ms on its CC3 batch): exit code 0,
    the headline line last and under 1,000 bytes, the gate passed and
-   all six pipeline kernels launched; its rates and headline printed.
+   all six pipeline kernels launched; its rates and headline printed;
+14. the walkthroughs and the validation suites, after phase 11: the
+   eight ``docs/walkthroughs`` executed against ``pywindow_torch`` on the
+   default device, the card (each file's python blocks in one namespace
+   in a scratch directory under ``build/``, the package name replaced in
+   memory; 02 through a stand-in of rdkit over
+   ``io.inputs.rdkit_like_mol`` when rdkit is not installed, 05 without
+   its forcefield-names aside, 08 on a two-frame periodic trajectory),
+   each against its goldens within 0.01 Å, its seconds, worst error and
+   own launches printed (all six pipeline kernels, ``ray_exit`` for 03);
+   the reference's validation suites, ``calculate_windows`` of five
+   cages (0.01 Å, case_5 0.05 Å, centres matched order-insensitively)
+   and ``calculate_average_diameter`` of five molecules (0.01 Å), each
+   through its kernels; ``ops.analysis.pore_diameter_opt`` on PUDXES
+   through ``lbfgsb_stable`` within 0.01 Å of 5.397, and
+   ``ops.rays.ray_sphere_intersections`` reduced over atoms against the
+   ``ray_exit`` kernel's ``any_front`` (no flip in float64, the flips
+   counted in float32).
 
-Phases 4-6, 8, 9, 10, 11 and 12's two-shard run are the main paths: before each the kernel
+``PYWINDOW_TORCH_DEVICE``, where set, must name the card (``cuda`` or
+``cuda:N``): the script refuses to start otherwise.
+
+Phases 4-6, 8, 9, 10, 11, 14 and 12's two-shard run are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
 have launched (all six pipeline kernels; ``clearance_min`` and its three
 helper passes on its grid);
@@ -153,11 +173,13 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import math
 import os
 import pathlib
 import pickle
+import re
 import socket
 import subprocess
 import statistics
@@ -317,6 +339,9 @@ def nvidia_smi() -> str:
 
 
 def phase_card() -> str:
+    named = os.environ.get("PYWINDOW_TORCH_DEVICE")
+    if named is not None and re.fullmatch(r"cuda(:\d+)?", named) is None:
+        raise SystemExit(f"chip_smoke: PYWINDOW_TORCH_DEVICE={named!r} does not name the card")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     smi = nvidia_smi()
@@ -2304,19 +2329,25 @@ def run_cli(*args: str) -> dict:
     return launches
 
 
-def surface_call(name: str, call: str, fn):
-    """One ``utilities`` call with the calling thread's launch counts set
-    to 0 before it; every kernel of :data:`SURFACE_KERNELS` launched
-    after it."""
+def own_launches(what: str, kernels: tuple, fn):
+    """``fn()`` with the calling thread's launch counts set to 0 before
+    it; every kernel of ``kernels`` launched after it -> (its result,
+    its launches)."""
     from pywindow_torch.ops import _cuda
 
     mine = _cuda.thread_launches()
     mine.clear()
     out = fn()
     torch.cuda.synchronize()
-    missing = [k for k in SURFACE_KERNELS[call] if mine[k] == 0]
-    check(not missing, f"surface {name}: {call} did not launch {missing}")
+    missing = [k for k in kernels if mine[k] == 0]
+    check(not missing, f"{what} did not launch {missing}")
     return out, {k: mine[k] for k in KERNELS if mine[k]}
+
+
+def surface_call(name: str, call: str, fn):
+    """One ``utilities`` call through :func:`own_launches`, holding the
+    kernels of :data:`SURFACE_KERNELS`."""
+    return own_launches(f"surface {name}: {call}", SURFACE_KERNELS[call], fn)
 
 
 def phase_surface() -> None:
@@ -2469,6 +2500,247 @@ def phase_dbscan_spiral(pin: float) -> None:
         f"same points {t_kernel:.4f} ms (events), {dev_kernel:.4f} ms (device, CUDA graph); "
         "labels equal"
     )
+
+
+# -- phase 14: the walkthroughs and the validation suites --------------------
+
+WALKTHROUGHS = ROOT / "docs" / "walkthroughs"
+#: a fenced python block of a walkthrough (the regex of the walkthrough tests)
+BLOCK_RE = re.compile(r"```python\n(.*?)```", re.DOTALL)
+
+
+def walkthrough_errors(key: str, ns: dict, cwd: pathlib.Path) -> dict[str, float]:
+    """Walkthrough ``key``'s checks on its namespace, those of its CPU
+    test with every golden held at :data:`TOL` -> {quantity: abs
+    error}; a count, a file or a range not as the prose says raises."""
+    props = ns.get("props")
+
+    def pore_opt(p):
+        return p["pore_diameter_opt"]["diameter"]
+
+    def windows(gold):
+        wins = props["windows"]["diameters"]
+        check(wins is not None and len(wins) == len(gold), f"{key}: windows {wins}, want {len(gold)}")
+        return float(np.abs(np.sort(np.asarray(wins, dtype=np.float64)) - np.sort(gold)).max())
+
+    if key == "01":
+        out = (cwd / "PUDXES_out.pdb").read_text().upper()
+        check((cwd / "PUDXES_properties.json").exists(), "01: no PUDXES_properties.json")
+        check(all(d in out for d in ("HE", "NE", "AR")), "01: the dummy atoms are not in the PDB")
+        check(len(props["windows"]["diameters"]) == 4, "01: not 4 windows")
+        return {"pore_opt": abs(pore_opt(props) - GOLD["PUDXES"]["pore"])}
+    if key == "02":
+        check(ns["mol"].no_of_atoms == 84, f"02: {ns['mol'].no_of_atoms} atoms")
+        return {"pore": abs(props["pore_diameter"]["diameter"] - GOLD["PUDXES"]["pore"])}
+    if key == "03":
+        return {"avg": abs(ns["avg"] - GOLD["PUDXES"]["avg"])}
+    if key in ("04", "05"):
+        gold = GOLD["MIBQAR" if key == "04" else "SAYGOR"]
+        return {"pore_opt": abs(pore_opt(props) - gold["pore_opt"]), "windows": windows(gold["windows"])}
+    if key == "06":
+        check(len(ns["molsys"].molecules) == 8 and len(ns["results"]) == 8, "06: not 8 cages")
+        cages = [periodic_errors(p) for p in (props, *ns["results"].values())]
+        return {q: max(c[q] for c in cages) for q in cages[0]}
+    if key == "07":
+        out = ns["traj"].analysis_output
+        check(ns["traj"].no_of_frames == 20 and len(out) == 20, "07: not 20 frames analysed")
+        check(len(ns["traj2"].analysis_output) == 20, "07: the saved analysis did not reload")
+        check(pore_opt(props) > 3.0, "07: pore_opt <= 3")
+        for frame, mols in out.items():
+            check_finite(f"07 frame {frame}", mols["0"])
+        return {}
+    check(len(ns["mols"]) == 8 and 3.0 < pore_opt(ns["mols"][0]) < 7.0, "08: frame 0 is off")
+    out = ns["traj"].analysis_output
+    check(set(out) == {0, 1} and all(len(out[f]) == 8 for f in out), "08: not 8 cages in both frames")
+    cages = [periodic_errors(p) for f in out for p in out[f].values()]
+    return {q: max(c[q] for c in cages) for q in cages[0]}
+
+
+#: per walkthrough: the blocks it skips (05's forcefield-names aside,
+#: which SAYGOR does not need) and the kernels it must launch
+WALKTHROUGH_RUNS = {
+    "01_structural_properties.md": ((), PIPELINE_KERNELS),
+    "02_rdkit_input.md": ((), PIPELINE_KERNELS),
+    "03_average_diameter.md": ((), ("ray_exit",)),
+    "04_mof.md": ((), PIPELINE_KERNELS),
+    "05_metal_organic_cage.md": ((1,), PIPELINE_KERNELS),
+    "06_periodic_system.md": ((), PIPELINE_KERNELS),
+    "07_trajectory_single_molecule.md": ((), PIPELINE_KERNELS),
+    "08_trajectory_periodic.md": ((), PIPELINE_KERNELS),
+}
+
+
+@contextlib.contextmanager
+def rdkit_stand_in():
+    """``rdkit.Chem.MolFromMol2File`` over the port's duck-typed Mol
+    (``io.inputs.rdkit_like_mol``) unless a usable rdkit is installed:
+    walkthrough 02's stand-in, as in its test."""
+    try:
+        import rdkit
+
+        usable = hasattr(rdkit.Chem, "MolFromMol2File")
+    except (ImportError, AttributeError):
+        usable = False
+    if usable:
+        yield
+        return
+    import types
+
+    from pywindow_torch.io.inputs import Input, rdkit_like_mol
+
+    chem = types.ModuleType("rdkit.Chem")
+    chem.MolFromMol2File = lambda path, removeHs=False: rdkit_like_mol(Input().load_file(path))
+    rk = types.ModuleType("rdkit")
+    rk.Chem = chem
+    saved = {k: sys.modules.get(k) for k in ("rdkit", "rdkit.Chem")}
+    sys.modules.update({"rdkit": rk, "rdkit.Chem": chem})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def run_walkthrough(name: str, cwd: pathlib.Path, skip: tuple) -> dict:
+    """Execute the walkthrough's python blocks against ``pywindow_torch``
+    (the package name replaced in memory) in one namespace, in ``cwd``,
+    where ``tests/`` resolves to the checkout's; 08 first gets its
+    two-frame ``periodic_traj.pdb``."""
+    (cwd / "tests").symlink_to(ROOT / "tests")
+    if name.startswith("08"):
+        base = PERIODIC.read_text()
+        (cwd / "periodic_traj.pdb").write_text((base[: base.rindex("END")] + "END\n") * 2)
+    blocks = BLOCK_RE.findall((WALKTHROUGHS / name).read_text())
+    check(len(blocks) > 0, f"{name}: no python blocks")
+    ns: dict = {}
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        # the blocks' own prints (the prose's expected values) are dropped
+        with rdkit_stand_in(), contextlib.redirect_stdout(io.StringIO()):
+            for i, block in enumerate(blocks):
+                if i not in skip:
+                    code = block.replace("pywindow_tpu", "pywindow_torch")
+                    exec(compile(code, f"{name}[block {i}]", "exec"), ns)
+    finally:
+        os.chdir(here)
+    check(ns["pw"].__name__ == "pywindow_torch", f"{name}: not the port")
+    return ns
+
+
+def validation_case(case: str) -> tuple[dict, dict]:
+    """One case of the reference's validation suites on the card, as its
+    test reads it -> ({quantity: abs error}, launches): windows and their
+    centres matched order-insensitively (case_5 at 0.05 Å), or the
+    average diameter."""
+    golden = json.loads((DATA / "validation_golden.json").read_text())[case]
+    if case.startswith("avg_"):
+        avg, launched = own_launches(
+            f"validation {case}", ("ray_exit",),
+            lambda: molecule(case).calculate_average_diameter(),
+        )
+        return {"avg": abs(avg - golden["average_diam"])}, launched
+    mol = molecule(f"val_{case}")
+    wins, launched = own_launches(f"validation {case}", PIPELINE_KERNELS, mol.calculate_windows)
+    gold = golden["windows_diam"]
+    if gold is None:
+        check(wins is None, f"validation {case}: windows {wins}, want none")
+        return {}, launched
+    check(wins is not None and len(wins) == len(gold), f"validation {case}: windows {wins}")
+    errs = {"windows": float(np.abs(np.sort(wins) - np.sort(gold)).max())}
+    coms = mol.properties["windows"]["centre_of_mass"]
+    taken: set = set()
+    worst = 0.0
+    for g in np.asarray(golden["windows_coms"]):
+        order = np.argsort(np.linalg.norm(coms - g, axis=1))
+        j = next(int(k) for k in order if int(k) not in taken)
+        taken.add(j)
+        worst = max(worst, float(np.abs(coms[j] - g).max()))
+    errs["centres"] = worst
+    return errs, launched
+
+
+def phase_helpers() -> None:
+    """The ``ops`` helpers on the card, on PUDXES: ``pore_diameter_opt``
+    through the ``lbfgsb_stable`` kernel within :data:`TOL` of the
+    golden, and ``ray_sphere_intersections`` reduced over atoms against
+    the ``ray_exit`` kernel's ``any_front`` on the average-diameter
+    spiral (no flip in float64; in float32 the kernel's algebraic front
+    test may flip rays within rounding of tangency, counted as phase 3
+    counts them)."""
+    from pywindow_torch.ops import analysis, encoding, geometry, rays
+
+    m = molecule("PUDXES")
+    mol = encoding.encode_batch([(m.elements, m.coordinates)], device=DEVICE)
+    (d, _, centre, _), launched = own_launches(
+        "pore_diameter_opt", ("lbfgsb_stable",), lambda: analysis.pore_diameter_opt(mol)
+    )
+    err = abs(float(d[0]) - GOLD["PUDXES"]["pore"])
+    print(
+        f"helpers pore_diameter_opt (PUDXES, {mol.coords.dtype} pipeline): {float(d[0])!r} A at "
+        f"{centre[0].tolist()}, abs err {err:.3e} A (tol {TOL}), launches {json.dumps(launched)}"
+    )
+    check(err < TOL, f"pore_diameter_opt: error {err} >= {TOL}")
+    for dtype in (torch.float32, torch.float64):
+        mm = mol.to(dtype)
+        centred = geometry.shift_to(mm, torch.zeros(1, 3, dtype=dtype, device=DEVICE))
+        maxd = geometry.max_dim_value(centred)
+        points = rays.golden_spiral(rays.number_of_points(float(maxd[0])), maxd)
+        inter = rays.ray_sphere_intersections(points, centred)
+        (hit, _), _ = own_launches(
+            "ray_exit", ("ray_exit",), lambda: rays.reversed_exit_distance(points, centred)
+        )
+        flips = int((inter.front.any(-1) != hit).sum())
+        print(
+            f"helpers ray_sphere_intersections (PUDXES, {dtype}, {tuple(inter.front.shape)} pairs): "
+            f"{flips} of {hit.numel()} rays flip against the ray_exit kernel's any_front"
+        )
+        limit = 0 if dtype == torch.float64 else 0.005 * hit.numel()
+        check(flips <= limit, f"ray_sphere_intersections {dtype}: {flips} rays flip")
+
+
+def phase_walkthroughs() -> None:
+    """The eight documented walkthroughs on the default device, the card
+    (a float32 pipeline, float64 optimiser kernels), each against its
+    goldens at :data:`TOL` and through its kernels; then the reference's
+    two validation suites (five window cases, five average-diameter
+    cases) and the ``ops`` helpers (:func:`phase_helpers`)."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    for name, (skip, kernels) in WALKTHROUGH_RUNS.items():
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            cwd = pathlib.Path(tmp)
+            t0 = time.perf_counter()
+            ns, launched = own_launches(
+                f"walkthrough {name}", kernels, lambda: run_walkthrough(name, cwd, skip)
+            )
+            seconds = time.perf_counter() - t0
+            errs = walkthrough_errors(name[:2], ns, cwd)
+        worst = max(errs.values(), default=0.0)
+        print(
+            f"walkthrough {name[:-3]}: {seconds:.3f} s, worst abs err {worst:.3e} A (tol {TOL}) "
+            f"{json.dumps(errs)}, launches {json.dumps(launched)}"
+        )
+        check(worst < TOL, f"walkthrough {name}: error {worst} >= {TOL}")
+
+    for suite, prefix in (("windows", "case_"), ("average diameter", "avg_case_")):
+        worst, t0 = 0.0, time.perf_counter()
+        for i in range(1, 6):
+            case = f"{prefix}{i}"
+            errs, launched = validation_case(case)
+            tol = 0.05 if case == "case_5" else TOL
+            print(f"  validation {case}: abs err {json.dumps(errs)} (tol {tol}), launches {json.dumps(launched)}")
+            check(max(errs.values(), default=0.0) < tol, f"validation {case}: {errs} beyond {tol} A")
+            worst = max(worst, *errs.values()) if errs else worst
+        print(
+            f"validation suite {suite}: 5 cases within tolerance, worst abs err {worst:.3e} A, "
+            f"{time.perf_counter() - t0:.3f} s"
+        )
+    phase_helpers()
 
 
 # -- phase 12: the frame mesh and the multi-process sweep --------------------
@@ -2862,6 +3134,8 @@ def main() -> None:
         phase_clearance_grid()
     with main_path("surface", calls):
         phase_surface()
+    with main_path("walkthroughs", calls):
+        phase_walkthroughs()
     phase_dbscan_spiral(pin)
 
     per_call = {json.dumps(delta, sort_keys=True) for _, _, delta, _ in calls}

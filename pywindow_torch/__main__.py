@@ -133,7 +133,7 @@ def main(argv=None) -> None:
     p.add_argument("--forcefield")
     p.add_argument("--swap", nargs="*", metavar="KEY=VALUE")
     p.add_argument("-o", "--output")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device")
     p.set_defaults(fn=cmd_analyze)
 
     p = sub.add_parser("trajectory", help="analyse an MD trajectory")
@@ -148,11 +148,11 @@ def main(argv=None) -> None:
     p.add_argument("--swap", nargs="*", metavar="KEY=VALUE")
     p.add_argument("--autosave-every", type=int, default=10)
     p.add_argument("-o", "--output")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device")
     p.set_defaults(fn=cmd_trajectory)
 
     p = sub.add_parser("bench", help="run the throughput benchmark")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device")
     p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)

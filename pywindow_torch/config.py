@@ -4,9 +4,12 @@
 field for field, so one package's config converts into the other's
 (see :func:`pywindow_torch.convert.config_from_dict`).
 
-Device policy: every entry point runs on the card (``device="cuda"``)
-unless the caller asks for the CPU, and raises when asked for a card
-that is not there (:func:`resolve_device`).
+Device policy: every entry point runs on the card unless the caller
+asks for the CPU, and raises when asked for a card that is not there
+(:func:`resolve_device`).  An entry point's ``device=None`` is the
+default device, :func:`default_device`: the card, or what the caller
+names once in ``PYWINDOW_TORCH_DEVICE`` (the counterpart of the JAX
+package's ``jax_platforms``; the CPU tests set it to ``cpu``).
 
 Dtype policy (counterpart of ``pywindow_tpu.config.default_dtype``):
 float64 on the CPU, where the optimisers run in the scipy-parity
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 
 import torch
 
@@ -43,14 +47,30 @@ def warm_cpu_math() -> None:
 warm_cpu_math()
 
 
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The device an entry point runs on; raises when the card is asked
-    for and none is available (there is no fallback to the CPU)."""
-    dev = torch.device(device)
+#: names the default device (:func:`default_device`)
+DEVICE_ENV = "PYWINDOW_TORCH_DEVICE"
+
+
+def default_device() -> torch.device:
+    """The device of an entry point called without one: ``cuda`` unless
+    :data:`DEVICE_ENV` names ``cpu``, ``cuda`` or ``cuda:N`` (read at
+    each call); any other value raises ``ValueError``."""
+    name = os.environ.get(DEVICE_ENV, "cuda")
+    if re.fullmatch(r"cpu|cuda(:\d+)?", name) is None:
+        msg = f"{DEVICE_ENV}={name!r}: expected cpu, cuda or cuda:N"
+        raise ValueError(msg)
+    return torch.device(name)
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on (``None``: :func:`default_device`);
+    raises when the card is asked for and none is available (there is
+    no fallback to the CPU)."""
+    dev = default_device() if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         msg = (
             "pywindow_torch: no CUDA device is available; "
-            "pass device='cpu' to run on the CPU"
+            f"pass device='cpu' or set {DEVICE_ENV}=cpu to run on the CPU"
         )
         raise RuntimeError(msg)
     return dev

@@ -45,7 +45,7 @@ class Molecule:
         system_name: str = "molecule",
         mol_id: int = 0,
         config: AnalysisConfig = DEFAULT_CONFIG,
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
     ) -> None:
         self._Output = Output()
         self.mol = mol
@@ -58,7 +58,8 @@ class Molecule:
         self.molecule_id = mol_id
         self.config = config
         #: the device the ``calculate_*`` getters analyse on (the last
-        #: ``full_analysis`` call's)
+        #: ``full_analysis`` call's; ``None``: the default device, resolved
+        #: at each call)
         self.device = device
         self.properties: dict = {"no_of_atoms": self.no_of_atoms}
         self._analysed = False
@@ -73,16 +74,19 @@ class Molecule:
     def full_analysis(
         self,
         ncpus: int = 1,
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
         **kwargs,
     ) -> dict:
-        """Run the complete analysis on ``device`` (the card unless the
-        caller asks for the CPU; raises when there is no card).
+        """Run the complete analysis on ``device`` (default: this
+        molecule's, else the default device, the card unless the caller
+        names the CPU; raises when there is no card).
 
         ``ncpus`` is accepted for reference API compatibility and
         ignored (parallelism is the device's job).
         """
         del ncpus
+        if device is None:
+            device = self.device
         self.device = device
         res = _analysis.analyze(
             self.elements, self.coordinates, cfg=self.config, device=device,
@@ -377,7 +381,7 @@ class MolecularSystem:
         (reference: molecular.py:818)."""
         return Molecule(self.system, str(self.system_id), 0)
 
-    def analyze_molecules(self, device: torch.device | str | list = "cuda") -> dict:
+    def analyze_molecules(self, device: torch.device | str | list | None = None) -> dict:
         """Full analysis of every molecule of :meth:`make_modular` as one
         batch on ``device`` (every local card unless the caller asks for
         others or the CPU; see
@@ -392,6 +396,7 @@ class MolecularSystem:
         from pywindow_torch.parallel.mesh import frame_devices
 
         keys = list(self.molecules)
+        own = frame_devices(device)[0] if isinstance(device, (list, tuple)) else device
         results = analyze_batch(
             [(self.molecules[k].elements, self.molecules[k].coordinates) for k in keys],
             device=device,
@@ -401,7 +406,7 @@ class MolecularSystem:
             mol.MW = props.pop("molecular_weight")
             mol.properties.update(props)
             mol._sync_attributes()
-            mol.device = device if isinstance(device, (str, torch.device)) else frame_devices(device)[0]
+            mol.device = own
             mol._analysed = True
         return {k: self.molecules[k].properties for k in keys}
 

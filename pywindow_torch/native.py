@@ -422,9 +422,14 @@ def fastprops():
 
 
 def props_dicts(flat: np.ndarray, max_windows: int):
-    """The converter on a packed (B, 21 + 6 W) float32 or float64 block
-    -> (dicts, rows whose refinement failed, rows with a negative window
-    diameter); see :func:`pywindow_torch.ops.analysis.to_properties_dicts_bulk`."""
+    """The converter on a packed (B, packed_size(W)) float32 or float64
+    block -> (dicts, rows whose refinement failed, rows with a negative
+    window diameter); see :func:`pywindow_torch.ops.analysis.to_properties_dicts_bulk`."""
+    from pywindow_torch.ops.analysis import packed_size
+
+    if flat.ndim != 2 or flat.shape[1] != packed_size(max_windows):
+        msg = f"props_dicts: a {flat.shape} block is not packed rows of {max_windows} window slots"
+        raise ValueError(msg)
     got = fastprops().props_dicts(np.ascontiguousarray(flat), int(max_windows))
     CALLS["props_dicts"] += 1
     return got

@@ -110,6 +110,24 @@ def optimise_pore_centre_res(
     return x.to(mol.coords.dtype), capped
 
 
+def optimise_pore_centre(mol: MolArrays, cfg: AnalysisConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """The optimised pore centres (B, 3) (see :func:`optimise_pore_centre_res`)."""
+    return optimise_pore_centre_res(mol, cfg)[0]
+
+
+def pore_diameter_opt(
+    mol: MolArrays, cfg: AnalysisConfig = DEFAULT_CONFIG
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The optimised pore of each molecule (reference:
+    utilities.py:400-426): ``(d, atom, centre, capped)``, the pore
+    diameter and limiting atom at the centre of
+    :func:`optimise_pore_centre_res` and its budget flag, each with the
+    batch's leading axis."""
+    centre, capped = optimise_pore_centre_res(mol, cfg)
+    d, atom = pore_diameter(mol, com=centre)
+    return d, atom, centre, capped
+
+
 def full_analysis_device(
     mol: MolArrays,
     n_points_windows: int,
@@ -157,8 +175,14 @@ def full_analysis_device(
     )
 
 
+def packed_size(max_windows: int) -> int:
+    """Length of a packed result row (:func:`pack_results`): 15 scalars,
+    the COM and the optimised centre, then 6 values a window slot."""
+    return 21 + 6 * max_windows
+
+
 def pack_results(res: FullAnalysis) -> torch.Tensor:
-    """Flatten a batched FullAnalysis into one (B, 21 + 6 W) float
+    """Flatten a batched FullAnalysis into one (B, packed_size(W)) float
     tensor, so the host fetches one tensor.  Row layout: 15 scalars, COM
     (3), optimised centre (3), then per-window diameters / valid /
     refine_failed / centres (W slots)."""
@@ -199,7 +223,7 @@ def run_pipeline(
     mols: MolArrays, sizes: tuple[int, int, int, int], cfg: AnalysisConfig
 ) -> torch.Tensor:
     """The device pipeline of one batch: (B, N) molecules -> packed
-    (B, 21 + 6 W) results on their device.  The single-molecule path and
+    (B, packed_size(W)) results on their device.  The single-molecule path and
     every chunk of a sweep run through here, so each kernel launches the
     same number of times per call whatever B is."""
     return pack_results(full_analysis_device(mols, *sizes, cfg))
@@ -210,7 +234,7 @@ def unpack_results(flat: np.ndarray, max_windows: int) -> FullAnalysis:
     arrays)."""
     wnd = max_windows
     s = flat[:15]
-    off = 21
+    off = packed_size(0)
     wins = WindowsResult(
         diameters=flat[off : off + wnd],
         centers=flat[off + 3 * wnd : off + 6 * wnd].reshape(wnd, 3),
@@ -284,7 +308,7 @@ def analyze(
     coordinates: np.ndarray,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     pad_to: int | None = None,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | None = None,
 ) -> dict:
     """Host entry: full analysis of one molecule on ``device`` (the card
     unless the caller asks for the CPU) -> reference-schema properties
@@ -418,7 +442,7 @@ def to_properties_dicts_bulk_plain(flat: np.ndarray, max_windows: int) -> list[d
     ``to_properties_dict(unpack_results(row))`` for every row, in
     Python, with the scalar columns converted once."""
     w = max_windows
-    off = 21
+    off = packed_size(0)
     b = flat.shape[0]
     any_open = flat[:, 11] > 0.5
     diam = np.ascontiguousarray(flat[:, off : off + w])

@@ -32,6 +32,10 @@ class MolArrays(NamedTuple):
     cov: torch.Tensor  # (..., N)
     mask: torch.Tensor  # (..., N) bool
 
+    @property
+    def n_atoms(self) -> torch.Tensor:
+        """Real (unpadded) atom count of each molecule."""
+        return self.mask.sum(-1)
 
     def to(self, dtype: torch.dtype) -> MolArrays:
         """The same molecule with float fields cast to ``dtype``."""

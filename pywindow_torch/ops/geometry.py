@@ -12,6 +12,7 @@ CUDA kernels use, so kernel and plain versions round alike.
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 
 import torch
 
@@ -98,6 +99,43 @@ def clearance_diff(
     delta = num / torch.where(den == 0.0, 1.0, den)
     q = torch.where(mol.mask[..., None, :], base[..., None, :] + delta, BIG)
     return q.amin(-1)
+
+
+def pore_stable_probe(
+    mol: MolArrays,
+    sign: float = -1.0,
+    origin: torch.Tensor | None = None,
+    embed: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> Callable:
+    """Symbolic-difference probe of the pore objective ``sign * 2 *
+    clearance`` (``-2 * clearance`` by default) for
+    :func:`pywindow_torch.ops.lbfgsb.lbfgsb_minimize_stable`.
+
+    Returns ``probe(x, disp, h) -> (delta_f, grad)`` over a batch
+    (x, disp, h (B, d) -> (B,), (B, d)): ``delta_f = f(x + disp) -
+    f(x)`` by :func:`clearance_diff` (cancellation-free for any
+    ``|disp|``) and the 2-point FD gradient at ``x + disp`` whose
+    numerators are symbolic ``h``-displacements, so scipy's ``h = 1e-8``
+    step works in float32 (geometry.py:138-158 of the JAX package).
+    The probed point is ``x`` (d = 3), or ``origin + embed(x)`` for a
+    lower-dimensional search (``embed``: (..., d) -> (..., 3)), as the
+    ``lbfgsb_stable`` kernel's plain version probes the window z.
+    """
+    sign2 = sign * 2.0
+    if embed is None:
+        def embed(s):
+            return s
+
+    def point3(x):
+        return embed(x) if origin is None else origin + embed(x)
+
+    def probe(x, disp, h):
+        delta = clearance_diff(point3(x), embed(disp)[:, None, :], mol)[:, 0]
+        steps = embed(torch.diag_embed(h))  # (B, d, 3)
+        dprobe = clearance_diff(point3(x + disp), steps, mol)
+        return sign2 * delta, (sign2 * dprobe) / h
+
+    return probe
 
 
 def clearance_and_argmin(

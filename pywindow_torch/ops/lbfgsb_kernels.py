@@ -26,7 +26,7 @@ import torch
 
 from pywindow_torch.ops import _cuda
 from pywindow_torch.ops.encoding import unmasked
-from pywindow_torch.ops.geometry import clearance_diff, clearance_field
+from pywindow_torch.ops.geometry import clearance_field, pore_stable_probe
 from pywindow_torch.ops.lbfgsb import _FD_ABS_STEP, _M, lbfgsb_minimize_stable
 
 #: identity embedding (pore stage, d = 3).
@@ -94,11 +94,7 @@ def lbfgsb_stable_flat_plain(
         def point3(u):
             return origin + _embed(u, emb)
 
-        def probe(x, disp, h):
-            delta = clearance_diff(point3(x), _embed(disp, emb)[:, None, :], mol)[:, 0]
-            steps = _embed(torch.diag_embed(h), emb)  # (B, d, 3)
-            dprobe = clearance_diff(point3(x + disp), steps, mol)
-            return sign2 * delta, (sign2 * dprobe) / h
+        probe = pore_stable_probe(mol, sign, origin, lambda s: _embed(s, emb))
 
         def f_abs(x):
             return sign2 * clearance_field(point3(x)[:, None, :], mol)[:, 0]

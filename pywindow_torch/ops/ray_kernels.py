@@ -56,22 +56,14 @@ def _unit_roundoff(dtype: torch.dtype) -> float:
 # ---------------------------------------------------------------------------
 
 
-def ray_exit_plain(
-    unit: torch.Tensor,
-    rel: torch.Tensor,
-    vdw: torch.Tensor,
-    origin: torch.Tensor,
-    want_exit: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per ray (any_front, max_exit): the JAX package's off-TPU path,
-    ``ray_sphere_intersections`` reduced over atoms (rays.py:121-155,
-    :370-375).
-
-    unit (B, P, 3) unit directions; rel (B, N, 3) atoms relative to
-    ``origin`` (padded atoms at 0 with vdW 0, which never hit); vdw
-    (B, N); origin (B, 3).  ``max_exit`` is -1e30 for rays with no front
-    hit, and everywhere when ``want_exit`` is False.
-    """
+def sphere_crossings(
+    unit: torch.Tensor, rel: torch.Tensor, vdw: torch.Tensor, origin: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per (ray, atom), each (B, P, N): whether the ray's line crosses
+    the atom's vdW sphere, whether the crossing's entry point is nearer
+    the ray origin than its exit ('front'), and the exit point's squared
+    norm (``rays.py:121-155`` of the JAX package); the inputs are
+    :func:`ray_exit_plain`'s."""
     # t_ca per coordinate, in the kernel's order: a matmul would round
     # differently, and on a grazing ray a last-bit change of the hit
     # test below changes which atom gives the farthest exit
@@ -86,7 +78,26 @@ def ray_exit_plain(
     p0 = o + (t_ca - t_hc)[..., None] * u
     p1 = o + (t_ca + t_hc)[..., None] * u
     p1_norm2 = sq_norm3(p1)
-    front = hits & (sq_norm3(p0) < p1_norm2)
+    return hits, hits & (sq_norm3(p0) < p1_norm2), p1_norm2
+
+
+def ray_exit_plain(
+    unit: torch.Tensor,
+    rel: torch.Tensor,
+    vdw: torch.Tensor,
+    origin: torch.Tensor,
+    want_exit: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per ray (any_front, max_exit): the JAX package's off-TPU path,
+    :func:`sphere_crossings` reduced over atoms (rays.py:121-155,
+    :370-375).
+
+    unit (B, P, 3) unit directions; rel (B, N, 3) atoms relative to
+    ``origin`` (padded atoms at 0 with vdW 0, which never hit); vdw
+    (B, N); origin (B, 3).  ``max_exit`` is -1e30 for rays with no front
+    hit, and everywhere when ``want_exit`` is False.
+    """
+    _, front, p1_norm2 = sphere_crossings(unit, rel, vdw, origin)
     any_front = front.any(-1)
     if not want_exit:
         return any_front, torch.full_like(unit[..., 0], -BIG)

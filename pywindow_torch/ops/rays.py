@@ -23,7 +23,7 @@ import torch
 
 from pywindow_torch.ops import ray_kernels
 from pywindow_torch.ops.encoding import MolArrays
-from pywindow_torch.ops.geometry import center_of_coor, sq_norm3
+from pywindow_torch.ops.geometry import center_of_coor, pairwise_distances, sq_norm3
 
 
 def number_of_points(sphere_radius: float, adjust: float = 1.0) -> int:
@@ -63,6 +63,17 @@ def golden_spiral(n_points: int, radius: torch.Tensor) -> torch.Tensor:
     )
 
 
+def mean_knn_eps(points: torch.Tensor, k: int = 10) -> torch.Tensor:
+    """DBSCAN eps of a point set (..., P, 3): the mean of each point's
+    ``k`` smallest distances, itself included, plus the mean's square
+    root (reference: utilities.py:1424-1434, whose KDTree query counts
+    the point itself); :func:`mean_knn_eps_scaled` is its form for a
+    spiral of known radius."""
+    nearest = torch.topk(pairwise_distances(points, points), k, dim=-1, largest=False).values
+    m = nearest.mean((-2, -1))
+    return m + torch.sqrt(m)
+
+
 @functools.lru_cache(maxsize=32)
 def _unit_mean_knn(n_points: int, k: int, dtype_name: str) -> float:
     """Mean k-NN distance (self included) of the unit-radius spiral: a
@@ -87,7 +98,8 @@ def mean_knn_eps_scaled(
     n_points: int, radius: torch.Tensor, k: int = 10
 ) -> torch.Tensor:
     """DBSCAN eps for a spiral of ``radius``: ``m*r + sqrt(m*r)`` with
-    ``m`` the unit-sphere mean k-NN distance (reference:
+    ``m`` the unit-sphere mean k-NN distance, :func:`mean_knn_eps` of
+    the spiral without its P x P distances (reference:
     utilities.py:1424-1434)."""
     name = str(radius.dtype).removeprefix("torch.")
     m = radius * _unit_mean_knn(n_points, k, name)
@@ -134,6 +146,25 @@ def _ray_frame(
     origin = center_of_coor(mol)
     rel = torch.where(mol.mask[..., None], mol.coords - origin[..., None, :], 0.0)
     return unit, rel, origin
+
+
+class RayIntersections(NamedTuple):
+    """Per (ray, atom) sphere-crossing quantities, each (..., P, N)."""
+
+    hits: torch.Tensor  # bool: the ray's line crosses the vdW sphere
+    front: torch.Tensor  # bool: its entry point is nearer the origin
+    exit_norm: torch.Tensor  # |p1|, the distance of the far crossing
+
+
+def ray_sphere_intersections(points: torch.Tensor, mol: MolArrays) -> RayIntersections:
+    """Each sampling ray (..., P, 3) against every vdW sphere of ``mol``:
+    the pairs that ``ray_exit`` and its plain version reduce over (the
+    same arithmetic, :func:`~pywindow_torch.ops.ray_kernels.sphere_crossings`),
+    padded atoms masked out."""
+    unit, rel, origin = _ray_frame(points, mol)
+    hits, front, p1_norm2 = ray_kernels.sphere_crossings(unit, rel, mol.vdw, origin)
+    valid = mol.mask[..., None, :]
+    return RayIntersections(hits & valid, front & valid, torch.sqrt(p1_norm2))
 
 
 def preanalysis_open(points: torch.Tensor, mol: MolArrays) -> torch.Tensor:

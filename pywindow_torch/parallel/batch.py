@@ -133,7 +133,7 @@ def max_safe_batch(
     n_atoms: int,
     max_diameter: float,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
-    device: DeviceSpec = "cuda",
+    device: DeviceSpec | None = None,
     budget: int | None = None,
 ) -> int:
     """Largest batch whose working memory (:func:`frame_bytes`) fits the
@@ -219,7 +219,7 @@ def dispatch_batch(
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     reference_max_diameter: float | None = None,
     pad_atoms: int | None = None,
-    device: DeviceSpec = "cuda",
+    device: DeviceSpec | None = None,
     span: str | None = None,
 ):
     """Encode one batch and queue its device pipeline; returns a handle
@@ -291,7 +291,7 @@ def analyze_batch(
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     reference_max_diameter: float | None = None,
     pad_atoms: int | None = None,
-    device: DeviceSpec = "cuda",
+    device: DeviceSpec | None = None,
 ) -> list[dict]:
     """Analyse many (elements, coordinates) systems as device batches on
     ``device`` (every local card unless the caller asks for others or
@@ -349,7 +349,7 @@ def sweep_uniform(
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     batch_size: int | None = None,
     reference_max_diameter: float | None = None,
-    device: DeviceSpec = "cuda",
+    device: DeviceSpec | None = None,
     bound_max_diameter: float | None = None,
     learn_caps: bool = True,
     on_rows=None,
@@ -400,7 +400,7 @@ def sweep_stream(
     batch_size: int | None = None,
     reference_max_diameter: float | None = None,
     size_gate: dict | None = None,
-    device: DeviceSpec = "cuda",
+    device: DeviceSpec | None = None,
 ) -> None:
     """Overlapped decode and device sweep over ``n_frames`` frames that
     share one element list (counterpart of

@@ -14,7 +14,7 @@ Every rank
    written, so no decision depends on state another rank does not
    share, and
 4. all-gathers its shard's packed result rows as one tensor
-   (``all_gather``; 21 + 6 x max_windows values a frame) and the dicts
+   (``all_gather``; ``packed_size(max_windows)`` values a frame) and the dicts
    of the few frames it re-ran (``all_gather_object``), and converts
    the other ranks' rows with the native converter, so every rank holds
    every frame.
@@ -35,7 +35,7 @@ import torch.distributed as dist
 
 from pywindow_torch import native
 from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
-from pywindow_torch.ops.analysis import batch_sizes, to_properties_dicts_bulk
+from pywindow_torch.ops.analysis import batch_sizes, packed_size, to_properties_dicts_bulk
 from pywindow_torch.parallel import batch, mesh
 from pywindow_torch.parallel.mesh import DeviceSpec, frame_devices
 from pywindow_torch.profiling import stage
@@ -215,7 +215,7 @@ def analysis_batched_distributed(
     override: bool = False,
     reference_max_diameter: float | None = None,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
-    device: DeviceSpec = "cuda",
+    device: DeviceSpec | None = None,
     batch_size: int | None = None,
 ) -> tuple[float, tuple[int, int, int, int]] | None:
     """Whole-sweep analysis of ``traj``'s frames over every rank of the
@@ -275,7 +275,7 @@ def analysis_batched_distributed(
     )
     finals = [results]
     if world > 1:  # nothing moves for a group of one
-        block = np.empty((len(mine), chunks[0][1].shape[1]), chunks[0][1].dtype)
+        block = np.empty((len(mine), packed_size(cfg.max_windows)), chunks[0][1].dtype)
         for positions, rows in chunks:
             block[positions] = rows
         with stage("sweep_gather"):

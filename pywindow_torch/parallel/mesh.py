@@ -45,12 +45,14 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
-def frame_devices(device: DeviceSpec = "cuda") -> list[torch.device]:
+def frame_devices(device: DeviceSpec | None = None) -> list[torch.device]:
     """The devices ``device`` names, each indexed (counterpart of
     ``frame_mesh``, mesh.py:18-22; :func:`shard_devices` says which of
     them a batch runs on).
 
-    An unindexed ``"cuda"`` gives every local card (``cuda:0`` ...
+    ``None`` is the default device
+    (:func:`~pywindow_torch.config.default_device`).  An unindexed
+    ``"cuda"`` gives every local card (``cuda:0`` ...
     ``cuda:n-1``), or a rank's card (:data:`LOCAL_DEVICES`); ``"cuda:k"``
     or ``"cpu"`` gives that one device; a list or tuple passes through,
     each entry checked by
@@ -84,7 +86,7 @@ def shard_devices(device: DeviceSpec) -> list[torch.device]:
     several cards are used as ranks, one a card
     (:mod:`pywindow_torch.parallel.distributed`), or by naming them."""
     devices = frame_devices(device)
-    if isinstance(device, (list, tuple)) or torch.device(device).index is not None:
+    if isinstance(device, (list, tuple)) or resolve_device(device).index is not None:
         return devices
     return devices[:1]
 

@@ -317,7 +317,7 @@ class Trajectory:
         rebuild: bool = False,
         swap_atoms: dict | None = None,
         forcefield: str | None = None,
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
     ) -> None:
         """Analyse frames one molecule at a time on ``device`` (the card
         unless the caller asks for the CPU); results land in
@@ -353,7 +353,7 @@ class Trajectory:
         autosave: pathlib.Path | str | None = None,
         autosave_every: int = 10,
         exact_sizes: bool = False,
-        device: DeviceSpec = "cuda",
+        device: DeviceSpec | None = None,
     ) -> None:
         """Analyse frames as device batches on ``device`` (every local
         card unless the caller asks for others or the CPU; see

@@ -105,14 +105,14 @@ def angle_between_vectors(x, y) -> float:
 # -- on the device ------------------------------------------------------------
 
 
-def max_dim(elements, coordinates, device: torch.device | str = "cuda") -> tuple[int, int, float]:
+def max_dim(elements, coordinates, device: torch.device | str | None = None) -> tuple[int, int, float]:
     """(atom_1, atom_2, maximum diameter) (reference: utilities.py:355-372)."""
     a1, a2, d = geometry.max_dim(encode(elements, coordinates, device=resolve_device(device)))
     return int(a1), int(a2), float(d)
 
 
 def pore_diameter(
-    elements, coordinates, com=None, device: torch.device | str = "cuda"
+    elements, coordinates, com=None, device: torch.device | str | None = None
 ) -> tuple[float, int]:
     """(pore diameter, limiting atom) about ``com`` (default: the centre
     of mass) (reference: utilities.py:375-388)."""
@@ -125,7 +125,7 @@ def pore_diameter(
 
 
 def opt_pore_diameter(
-    elements, coordinates, bounds=None, com=None, device: torch.device | str = "cuda"
+    elements, coordinates, bounds=None, com=None, device: torch.device | str | None = None
 ) -> tuple[float, int, np.ndarray]:
     """(diameter, atom, optimised centre) (reference: utilities.py:400-426):
     L-BFGS-B from ``com`` (default: the centre of mass) within ``bounds``
@@ -156,7 +156,7 @@ def opt_pore_diameter(
 
 def find_windows(
     elements, coordinates, processes=None, adjust=1.0, pore_opt=True, increment=1.0,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | None = None,
 ):
     """(window diameters, window centres) or None (reference:
     utilities.py:1364-1553).  ``processes`` is accepted for API
@@ -192,7 +192,7 @@ def find_windows(
 
 
 def find_average_diameter(
-    elements, coordinates, adjust=1.0, processes=None, device: torch.device | str = "cuda"
+    elements, coordinates, adjust=1.0, processes=None, device: torch.device | str | None = None
 ) -> float:
     """Average outline diameter (reference: utilities.py:1586-1650), on
     the ``ray_exit`` kernel on the card."""
@@ -482,7 +482,7 @@ def compare_properties_dict(
 # ---------------------------------------------------------------------
 
 
-def correct_pore_diameter(com, *params, device: torch.device | str = "cuda"):
+def correct_pore_diameter(com, *params, device: torch.device | str | None = None):
     """Negative pore diameter (the pore-optimisation objective;
     reference: utilities.py:391-397), on ``device`` (the card by
     default)."""
@@ -627,7 +627,7 @@ def vector_analysis_reversed(vector, coordinates, elements_vdw):
     return [dist, point]
 
 
-def optimise_xy(xy, *args, device: torch.device | str = "cuda"):
+def optimise_xy(xy, *args, device: torch.device | str | None = None):
     """Window xy objective: negative pore diameter at (x, y, z) on
     ``device`` (the card by default) (reference: utilities.py:1164-1171)."""
     z, elements, coordinates = args
@@ -635,7 +635,7 @@ def optimise_xy(xy, *args, device: torch.device | str = "cuda"):
     return -pore_diameter(elements, coordinates, com=com, device=device)[0]
 
 
-def optimise_z(z, *args, device: torch.device | str = "cuda"):
+def optimise_z(z, *args, device: torch.device | str | None = None):
     """Window z objective: pore diameter at (x, y, z) on ``device`` (the
     card by default) (reference: utilities.py:1174-1188)."""
     x, y, elements, coordinates = args
@@ -652,7 +652,7 @@ def window_analysis(
     z_bounds=None,
     lb_z: bool = True,
     z_second_mini: bool = False,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | None = None,
 ):
     """Refine one window cluster: its widest ray re-sampled at
     ``increment2`` (``path_sweep`` on the card), the octant rotation and
