@@ -24,7 +24,7 @@ from copy import deepcopy
 import numpy as np
 import torch
 
-from pywindow_torch import tables
+from pywindow_torch import profiling, tables
 from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig, resolve_device
 from pywindow_torch.io.forcefield import decipher_all
 from pywindow_torch.io.inputs import Input
@@ -71,6 +71,7 @@ class Molecule:
         :func:`~pywindow_torch.io.inputs.rdkit_like_mol`)."""
         return cls(Input().load_rdkit_mol(mol), system_name, mol_id)
 
+    @profiling.entry_point("full_analysis", "request")
     def full_analysis(
         self,
         ncpus: int = 1,
@@ -293,6 +294,7 @@ class MolecularSystem:
         self.molecules: dict = {}
 
     @classmethod
+    @profiling.entry_point("load_file", "load")
     def load_file(cls, filepath: pathlib.Path | str) -> MolecularSystem:
         filepath = pathlib.Path(filepath)
         obj = cls()
@@ -369,7 +371,10 @@ class MolecularSystem:
         """Split the system into :class:`Molecule` s keyed 0, 1, ...
         (reference: molecular.py:798-824); ``rebuild`` first makes whole
         the molecules that cross the periodic boundary."""
-        supercell = create_supercell(self.system) if rebuild else None
+        supercell = None
+        if rebuild:
+            with profiling.stage("rebuild_supercell"):
+                supercell = create_supercell(self.system)
         dis = discrete_molecules(self.system, rebuild=supercell, use_native=use_native)
         self.no_of_discrete_molecules = len(dis)
         self.molecules = {

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pywindow_torch import tables
+from pywindow_torch import profiling, tables
 from pywindow_torch.config import (
     DEFAULT_CONFIG,
     MAX_WINDOWS_CEILING,
@@ -137,26 +137,32 @@ def full_analysis_device(
     cfg: AnalysisConfig,
 ) -> FullAnalysis:
     """Every per-molecule property of the batch ``mol`` (B, N), computed
-    on its device."""
-    mw = molecular_weight(mol)
-    com = center_of_mass(mol)
-    a1, a2, maxd = max_dim(mol)
+    on its device; each stage's host enqueue is a ``pipeline.<stage>``
+    span."""
+    with stage("pipeline.scalars"):
+        mw = molecular_weight(mol)
+        com = center_of_mass(mol)
+        a1, a2, maxd = max_dim(mol)
 
     # average diameter on the COM-centred molecule, sampling radius =
     # the full max diameter (utilities.py:1586-1650)
-    centred = shift_to(mol, torch.zeros_like(com))
-    avg = rays.average_diameter(centred, n_points_avg, max_dim_value(centred))
+    with stage("pipeline.average"):
+        centred = shift_to(mol, torch.zeros_like(com))
+        avg = rays.average_diameter(centred, n_points_avg, max_dim_value(centred))
 
-    pd, pd_atom = pore_diameter(mol, com=com)
-    pv = sphere_volume(pd / 2.0)
-    pod_centre, pore_capped = optimise_pore_centre_res(mol, cfg)
-    pod, pod_atom = pore_diameter(mol, com=pod_centre)
-    pov = sphere_volume(pod / 2.0)
+    with stage("pipeline.pore"):
+        pd, pd_atom = pore_diameter(mol, com=com)
+        pv = sphere_volume(pd / 2.0)
+    with stage("pipeline.pore_opt"):
+        pod_centre, pore_capped = optimise_pore_centre_res(mol, cfg)
+        pod, pod_atom = pore_diameter(mol, com=pod_centre)
+        pov = sphere_volume(pod / 2.0)
 
-    wins = find_windows(
-        mol, n_points_windows, l1, l2, cfg, pore_centre=pod_centre
-    )
-    wins = wins._replace(opt_capped=wins.opt_capped | pore_capped)
+    with stage("pipeline.windows"):
+        wins = find_windows(
+            mol, n_points_windows, l1, l2, cfg, pore_centre=pod_centre
+        )
+        wins = wins._replace(opt_capped=wins.opt_capped | pore_capped)
     return FullAnalysis(
         molecular_weight=mw,
         centre_of_mass=com,
@@ -226,7 +232,9 @@ def run_pipeline(
     (B, packed_size(W)) results on their device.  The single-molecule path and
     every chunk of a sweep run through here, so each kernel launches the
     same number of times per call whatever B is."""
-    return pack_results(full_analysis_device(mols, *sizes, cfg))
+    res = full_analysis_device(mols, *sizes, cfg)
+    with stage("pipeline.pack"):
+        return pack_results(res)
 
 
 def unpack_results(flat: np.ndarray, max_windows: int) -> FullAnalysis:
@@ -317,7 +325,9 @@ def analyze(
     Re-runs with a doubled compaction fraction when the open rays
     overflowed the cap, at the full optimiser budgets when a fast budget
     stopped an optimiser, and with a doubled window cap when the
-    clusters filled every slot (up to MAX_WINDOWS_CEILING).
+    clusters filled every slot (up to MAX_WINDOWS_CEILING); each re-run
+    is an ``analysis_rerun`` span and counts as
+    ``analysis_reruns.<reason>``.
     """
     device = resolve_device(device)
     with stage("encode"):
@@ -325,11 +335,8 @@ def analyze(
     with stage("static_sizes"):
         maxd = max_dim_host(np.asarray(elements), np.asarray(coordinates))
         sizes = static_sizes(maxd, cfg)
+    res, props = _analysis_pass(mol, sizes, cfg)
     while True:
-        with stage("full_analysis"):
-            flat = run_pipeline(mol, sizes, cfg)
-            res = unpack_results(flat[0].cpu().numpy(), cfg.max_windows)
-        props = to_properties_dict(res)
         overflow = props.pop("_open_cap_overflow", False)
         budget = props.pop("_opt_budget_exceeded", False)
         saturated = props.pop("_window_cap_saturated", False)
@@ -337,26 +344,48 @@ def analyze(
             cfg = dataclasses.replace(
                 cfg, open_cap_frac=2.0 * cfg.open_cap_frac
             )
+            reason = "open_overflow"
         elif budget and cfg.fast_budgets:
             # only once: a full-budget run that still caps matches
             # scipy's own maxiter stop
             cfg = dataclasses.replace(cfg, fast_budgets=False)
+            reason = "budget"
         elif saturated and cfg.max_windows < MAX_WINDOWS_CEILING:
             cfg = dataclasses.replace(cfg, max_windows=2 * cfg.max_windows)
+            reason = "window_sat"
         else:
             break
+        METRICS.count(f"analysis_reruns.{reason}")
+        with stage("analysis_rerun", reason=reason):
+            res, props = _analysis_pass(mol, sizes, cfg)
     if int(res.windows.n_clusters) >= cfg.max_windows:
         logger.warning(
             "window clusters reached max_windows=%d; raise "
             "AnalysisConfig.max_windows if this system may have more",
             cfg.max_windows,
         )
-    METRICS.count("molecules_analysed")
-    METRICS.count("windows_found", int(np.sum(res.windows.valid)))
-    METRICS.count(
-        "window_refines_failed", int(np.sum(res.windows.refine_failed))
-    )
+    if profiling.enabled():
+        METRICS.count("molecules_analysed")
+        METRICS.count("windows_found", int(np.sum(res.windows.valid)))
+        METRICS.count(
+            "window_refines_failed", int(np.sum(res.windows.refine_failed))
+        )
     return props
+
+
+def _analysis_pass(
+    mol: MolArrays, sizes: tuple[int, int, int, int], cfg: AnalysisConfig
+) -> tuple[FullAnalysis, dict]:
+    """One pass of :func:`analyze`: the device pipeline enqueued, its
+    packed row fetched, the properties dict (markers in)."""
+    with stage("analysis_enqueue"):
+        flat = run_pipeline(mol, sizes, cfg)
+    with stage("analysis_fetch"):
+        row = flat[0].cpu().numpy()
+    with stage("analysis_dict"):
+        res = unpack_results(row, cfg.max_windows)
+        props = to_properties_dict(res)
+    return res, props
 
 
 _WARN_FAILED = (

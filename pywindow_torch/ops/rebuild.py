@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from pywindow_torch import native, tables
+from pywindow_torch.profiling import stage
 from pywindow_torch.ops.cell import (
     cart_to_frac,
     unit_cell_to_lattice_array,
@@ -152,15 +153,16 @@ def discrete_molecules(
         # to 8 dp, reference: utilities.py:1021).  With exact image
         # copies this reduces to coordinate identity.
         s_key = {}
-        for j in range(len(s_elements)):
-            key = (
-                s_elements[j],
-                None if s_atom_ids is None else s_atom_ids[j],
-                s_coords[j, 0],
-                s_coords[j, 1],
-                s_coords[j, 2],
-            )
-            s_key.setdefault(key, []).append(j)
+        with stage("rebuild_intern"):
+            for j in range(len(s_elements)):
+                key = (
+                    s_elements[j],
+                    None if s_atom_ids is None else s_atom_ids[j],
+                    s_coords[j, 0],
+                    s_coords[j, 1],
+                    s_coords[j, 2],
+                )
+                s_key.setdefault(key, []).append(j)
 
     max_r_cov = max(
         tables.atomic_covalent_radius[e.upper()] for e in set(elements)
@@ -190,51 +192,52 @@ def discrete_molecules(
     # --- native-core preparation (value-identity key interning) -------
     native_ctx = None
     if use_native:
-        key_of: dict = {}
+        with stage("rebuild_intern"):
+            key_of: dict = {}
 
-        def intern(el, aid, xyz):
-            k = (el, aid, xyz[0], xyz[1], xyz[2])
-            return key_of.setdefault(k, len(key_of)), k
+            def intern(el, aid, xyz):
+                k = (el, aid, xyz[0], xyz[1], xyz[2])
+                return key_of.setdefault(k, len(key_of)), k
 
-        key_id = np.empty(n, dtype=np.int64)
-        unit_by_key: dict = {}
-        dup_keys = False
-        for i in range(n):
-            kid, k = intern(
-                elements[i],
-                None if atom_ids is None else atom_ids[i],
-                coords[i],
-            )
-            key_id[i] = kid
-            if k in unit_by_key:
-                dup_keys = True
-            unit_by_key[k] = i
-        skey_id = smatch = None
-        if rebuild is not None:
-            ns = len(s_elements)
-            skey_id = np.empty(ns, dtype=np.int64)
-            smatch = np.full(ns, -1, dtype=np.int64)
-            for j in range(ns):
+            key_id = np.empty(n, dtype=np.int64)
+            unit_by_key: dict = {}
+            dup_keys = False
+            for i in range(n):
                 kid, k = intern(
-                    s_elements[j],
-                    None if s_atom_ids is None else s_atom_ids[j],
-                    s_coords[j],
+                    elements[i],
+                    None if atom_ids is None else atom_ids[i],
+                    coords[i],
                 )
-                skey_id[j] = kid
+                key_id[i] = kid
                 if k in unit_by_key:
-                    smatch[j] = unit_by_key[k]
-        if not dup_keys:  # duplicate-value atoms need the full scan
-            native_ctx = {
-                "key_id": key_id,
-                "skey_id": skey_id,
-                "smatch": smatch,
-                "heavy_u8": heavy.astype(np.uint8),
-                "sheavy_u8": (
-                    s_heavy.astype(np.uint8)
-                    if rebuild is not None
-                    else None
-                ),
-            }
+                    dup_keys = True
+                unit_by_key[k] = i
+            skey_id = smatch = None
+            if rebuild is not None:
+                ns = len(s_elements)
+                skey_id = np.empty(ns, dtype=np.int64)
+                smatch = np.full(ns, -1, dtype=np.int64)
+                for j in range(ns):
+                    kid, k = intern(
+                        s_elements[j],
+                        None if s_atom_ids is None else s_atom_ids[j],
+                        s_coords[j],
+                    )
+                    skey_id[j] = kid
+                    if k in unit_by_key:
+                        smatch[j] = unit_by_key[k]
+            if not dup_keys:  # duplicate-value atoms need the full scan
+                native_ctx = {
+                    "key_id": key_id,
+                    "skey_id": skey_id,
+                    "smatch": smatch,
+                    "heavy_u8": heavy.astype(np.uint8),
+                    "sheavy_u8": (
+                        s_heavy.astype(np.uint8)
+                        if rebuild is not None
+                        else None
+                    ),
+                }
 
     while unassigned.any():
         cand = unassigned & heavy
@@ -245,34 +248,36 @@ def discrete_molecules(
 
         if native_ctx is not None:
             un_u8 = unassigned.astype(np.uint8)
-            src_arr, idx_arr = native.bfs_molecule(
-                int(seed),
-                un_u8,
-                coords,
-                cov,
-                native_ctx["heavy_u8"],
-                native_ctx["key_id"],
-                s_coords if rebuild is not None else None,
-                s_cov if rebuild is not None else None,
-                native_ctx["sheavy_u8"],
-                native_ctx["skey_id"],
-                native_ctx["smatch"],
-                max_dist,
-                tol,
-            )
+            with stage("rebuild_bfs"):
+                src_arr, idx_arr = native.bfs_molecule(
+                    int(seed),
+                    un_u8,
+                    coords,
+                    cov,
+                    native_ctx["heavy_u8"],
+                    native_ctx["key_id"],
+                    s_coords if rebuild is not None else None,
+                    s_cov if rebuild is not None else None,
+                    native_ctx["sheavy_u8"],
+                    native_ctx["skey_id"],
+                    native_ctx["smatch"],
+                    max_dist,
+                    tol,
+                )
             unassigned[:] = un_u8.astype(bool)
-            mol_entries = [
-                ("u" if s == 0 else "s", int(i))
-                for s, i in zip(src_arr, idx_arr)
-            ]
-            mol = _assemble_molecule(
-                mol_entries, elements, atom_ids, coords,
-                s_elements if rebuild is not None else None,
-                s_atom_ids if rebuild is not None else None,
-                s_coords if rebuild is not None else None,
-            )
-            if _keep_molecule(mol, rebuild, matrix, boundary):
-                molecules.append(mol)
+            with stage("rebuild_assemble"):
+                mol_entries = [
+                    ("u" if s == 0 else "s", int(i))
+                    for s, i in zip(src_arr, idx_arr)
+                ]
+                mol = _assemble_molecule(
+                    mol_entries, elements, atom_ids, coords,
+                    s_elements if rebuild is not None else None,
+                    s_atom_ids if rebuild is not None else None,
+                    s_coords if rebuild is not None else None,
+                )
+                if _keep_molecule(mol, rebuild, matrix, boundary):
+                    molecules.append(mol)
             continue
 
         # BFS.  Each frontier entry is (source, index) with source 'u'

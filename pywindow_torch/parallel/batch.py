@@ -262,14 +262,15 @@ def _to_dicts(flat: np.ndarray, cfg: AnalysisConfig) -> list[dict]:
     still in, and the counters they feed."""
     with stage("sweep_to_dicts"):
         results = to_properties_dicts_bulk(flat, cfg.max_windows)
-    METRICS.count("molecules_analysed", len(results))
-    METRICS.count(
-        "windows_found",
-        sum(
-            0 if r["windows"]["diameters"] is None else len(r["windows"]["diameters"])
-            for r in results
-        ),
-    )
+    if profiling.enabled():
+        METRICS.count("molecules_analysed", len(results))
+        METRICS.count(
+            "windows_found",
+            sum(
+                0 if r["windows"]["diameters"] is None else len(r["windows"]["diameters"])
+                for r in results
+            ),
+        )
     return results
 
 
@@ -335,10 +336,11 @@ def analyze_batch(
         results = collect_batch(handle)
     # the retry keeps the pin the dispatch resolved, so the escalated
     # subset keeps the batch's sampling-point count
-    return retry_saturated_windows(
-        systems, results, cfg, reference_max_diameter=handle[3],
-        pad_atoms=pad_atoms, device=device,
-    )
+    with stage("sweep_retry"):
+        return retry_saturated_windows(
+            systems, results, cfg, reference_max_diameter=handle[3],
+            pad_atoms=pad_atoms, device=device,
+        )
 
 
 def sweep_uniform(
@@ -516,28 +518,33 @@ def _sweep_frames(
     np_dtype = numpy_dtype(dtype)
     n_pad = round_up(max(n, 1), pad_multiple())
 
-    # constant per-atom fields: one host encode, one transfer a device
-    _, mass, vdw, cov, mask = encode_host(elements, np.zeros((n, 3)), n_pad, np_dtype)
-    lanes = [_Lane(dev, (mass, vdw, cov, mask)) for dev in devices]
+    with stage("sweep_open"):
+        # constant per-atom fields: one host encode, one transfer a device
+        _, mass, vdw, cov, mask = encode_host(elements, np.zeros((n, 3)), n_pad, np_dtype)
+        lanes = [_Lane(dev, (mass, vdw, cov, mask)) for dev in devices]
 
-    # decoded frames accumulate in the pipeline dtype (a restart never
-    # decodes again), pinned on the card; the retries read the float64
-    # frames where the caller has them, else this store (a float32 frame
-    # is what the pipeline would see of its float64 source anyway)
-    fill_store = cuda or preloaded is None or preloaded.dtype != np_dtype
-    if fill_store:
-        store_t = torch.empty((n_frames, n, 3), dtype=dtype, pin_memory=cuda)
-        store = store_t.numpy()
-    else:
-        store = preloaded
-        store_t = torch.as_tensor(store)
+        # decoded frames accumulate in the pipeline dtype (a restart never
+        # decodes again), pinned on the card; the retries read the float64
+        # frames where the caller has them, else this store (a float32 frame
+        # is what the pipeline would see of its float64 source anyway)
+        fill_store = cuda or preloaded is None or preloaded.dtype != np_dtype
+        if fill_store:
+            store_t = torch.empty((n_frames, n, 3), dtype=dtype, pin_memory=cuda)
+            store = store_t.numpy()
+        else:
+            store = preloaded
+            store_t = torch.as_tensor(store)
     retry_src = store if preloaded is None else preloaded
     slab_key = "out64" if np_dtype == np.float64 else "out32"
     maxd_pf = np.empty(n_frames, dtype=np.float64)
     state = {"decoded": 0}
+    # the caller's unit (a sweep's id): each chunk's spans add its
+    # number, which a restart's chunks continue
+    ids = profiling.current()
+    first = 0
 
-    def decode_into(hi: int) -> None:
-        with stage("sweep_decode"):
+    def decode_into(hi: int, chunk: int) -> None:
+        with stage("sweep_decode", chunk=chunk):
             lo = state["decoded"]
             outs = {slab_key: store[lo:hi]} if fill_store else {}
             maxd_pf[lo:hi] = decode_slab(lo, hi, **outs)
@@ -556,8 +563,8 @@ def _sweep_frames(
 
     while True:  # a streamed sweep restarts when the sizes escalate
         if state["decoded"] == 0:
-            with stage("sweep_decode_wait"):  # the first slab: nothing to overlap
-                decode_into(min(n_frames, batch_size or _FIRST_SLAB))
+            with stage("sweep_decode_wait", chunk=0):  # the first slab: nothing to overlap
+                decode_into(min(n_frames, batch_size or _FIRST_SLAB), 0)
         pin, sizes = current_sizes()
         if size_gate is not None:
             size_gate["final"] = not streaming or state["decoded"] == n_frames
@@ -615,11 +622,12 @@ def _sweep_frames(
             del parts, handle
             results = _to_dicts(flat, chunk_cfg)
             esc: dict = {}
-            results = retry_saturated_windows(
-                [(elements, retry_src[i]) for i in range(lo, hi)],
-                results, chunk_cfg, escalation_sink=esc,
-                reference_max_diameter=pin, device=device,
-            )
+            with stage("sweep_retry"):
+                results = retry_saturated_windows(
+                    [(elements, retry_src[i]) for i in range(lo, hi)],
+                    results, chunk_cfg, escalation_sink=esc,
+                    reference_max_diameter=pin, device=device,
+                )
             positions = np.arange(lo, hi, dtype=np.int64)
             if on_rows is not None:
                 on_rows(positions, flat, {i: results[i] for i in esc["redone"]})
@@ -657,18 +665,19 @@ def _sweep_frames(
             pending = None  # the decode in flight
 
             def queue_collect() -> None:
-                lo0, hi0, h0 = inflight.popleft()
-                collects.append(collector.submit(finish, lo0, hi0, h0))
+                k0, lo0, hi0, h0 = inflight.popleft()
+                job = collector.submit(profiling.call, {**ids, "chunk": k0}, finish, lo0, hi0, h0)
+                collects.append((k0, job))
 
-            for lo, hi in plan:
+            for k, (lo, hi) in enumerate(plan, first):
                 # this chunk's frames must be decoded
                 while state["decoded"] < hi and not escalated:
-                    with stage("sweep_decode_wait"):
+                    with stage("sweep_decode_wait", chunk=k):
                         if pending is not None:
                             pending.result()
                             pending = None
                         else:
-                            decode_into(min(state["decoded"] + c, n_frames))
+                            decode_into(min(state["decoded"] + c, n_frames), k)
                     escalated = streaming and current_sizes()[1] != sizes
                 # a prefetch that has finished may escalate too
                 if pending is not None and pending.done():
@@ -680,25 +689,30 @@ def _sweep_frames(
                 if size_gate is not None and pending is None and state["decoded"] == n_frames:
                     size_gate["final"] = True  # every slab decoded, no escalation
                 if pending is None and state["decoded"] < n_frames:
-                    pending = decoder.submit(decode_into, min(state["decoded"] + c, n_frames))
-                inflight.append((lo, hi, dispatch(lo, hi)))
+                    hi_next = min(state["decoded"] + c, n_frames)
+                    pending = decoder.submit(profiling.call, ids, decode_into, hi_next, k + 1)
+                inflight.append((k, lo, hi, profiling.call({"chunk": k}, dispatch, lo, hi)))
                 if len(inflight) > _PIPELINE_DEPTH:
                     queue_collect()
                 # retire finished collects (raises their errors, bounds
                 # the queue)
                 while len(collects) > 1:
-                    with stage("sweep_collect_wait"):
-                        collects.popleft().result()
+                    k0, job = collects.popleft()
+                    with stage("sweep_collect_wait", chunk=k0):
+                        job.result()
             # drain (also on the escalated break: the prefetch writes
             # the store the restart reads)
-            if pending is not None:
-                pending.result()
-            while inflight:
-                queue_collect()
-            while collects:
-                collects.popleft().result()
+            with stage("sweep_drain"):
+                if pending is not None:
+                    pending.result()
+                while inflight:
+                    queue_collect()
+                while collects:
+                    collects.popleft()[1].result()
         if not escalated:
             return
+        METRICS.count("sweep_restarts")
+        first += len(plan)
         logger.info(
             "sweep sampling sizes escalated mid-stream (%s -> %s); "
             "restarting over the %d decoded frames",
@@ -726,11 +740,13 @@ def retry_saturated_windows(
 
     Pops the markers from every result; ``escalation_sink`` receives the
     counts per marker (``open_overflow``, ``budget``, ``window_sat``) and
-    the sorted indices whose results a re-run replaced (``redone``).
+    the sorted indices whose results a re-run replaced (``redone``).  The
+    molecules re-run count as ``frames_retried.<marker>``.
     """
     redone: set = set()
 
-    def rerun(idxs: list[int], cfg2: AnalysisConfig) -> None:
+    def rerun(idxs: list[int], cfg2: AnalysisConfig, reason: str) -> None:
+        METRICS.count(f"frames_retried.{reason}", len(idxs))
         redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
         for i, r in zip(idxs, redo):
             results[i] = r
@@ -738,11 +754,11 @@ def retry_saturated_windows(
 
     over = [i for i, r in enumerate(results) if r.pop("_open_cap_overflow", False)]
     if over:
-        rerun(over, dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac))
+        rerun(over, dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac), "open_overflow")
 
     budget = [i for i, r in enumerate(results) if r.pop("_opt_budget_exceeded", False)]
     if budget and cfg.fast_budgets:
-        rerun(budget, dataclasses.replace(cfg, fast_budgets=False))
+        rerun(budget, dataclasses.replace(cfg, fast_budgets=False), "budget")
 
     idxs = [i for i, r in enumerate(results) if r.pop("_window_cap_saturated", False)]
     if idxs and cfg.max_windows >= MAX_WINDOWS_CEILING:
@@ -752,7 +768,7 @@ def retry_saturated_windows(
             len(idxs), cfg.max_windows,
         )
     elif idxs:
-        rerun(idxs, dataclasses.replace(cfg, max_windows=2 * cfg.max_windows))
+        rerun(idxs, dataclasses.replace(cfg, max_windows=2 * cfg.max_windows), "window_sat")
     if escalation_sink is not None:
         escalation_sink.update(
             open_overflow=len(over), budget=len(budget), window_sat=len(idxs),

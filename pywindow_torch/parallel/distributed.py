@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pywindow_torch import native
+from pywindow_torch import native, profiling
 from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
 from pywindow_torch.ops.analysis import batch_sizes, packed_size, to_properties_dicts_bulk
 from pywindow_torch.parallel import batch, mesh
@@ -137,7 +137,8 @@ def _build_barrier(tag: str, devices: list[torch.device]) -> None:
         _cuda.load_extension()
     native.lib()
     native.fastprops()
-    _store_barrier(tag)
+    with stage("rank_barrier"):  # waiting for the slowest rank
+        _store_barrier(tag)
 
 
 def _shard_frames(todo: list[int], n_procs: int) -> list[list[int]]:
@@ -207,6 +208,7 @@ def _rows_to_dicts(rows: np.ndarray, cfg: AnalysisConfig, redone: dict) -> list[
     return out
 
 
+@profiling.entry_point("analysis_batched_distributed", "sweep")
 def analysis_batched_distributed(
     traj,
     frames="all",
@@ -250,9 +252,11 @@ def analysis_batched_distributed(
     mine = shards[rank]
     with stage("trajectory_decode"):
         elements, coords = _decode_shard(traj, mine, swap_atoms, forcefield)
-    maxd = batch.frame_max_diameters(elements, coords, devices)
+    with stage("sweep_max_diameters"):
+        maxd = batch.frame_max_diameters(elements, coords, devices)
     _build_barrier("sweep", devices)
-    global_max = _max_over_ranks(float(maxd.max()), devices[0])
+    with stage("rank_pin"):
+        global_max = _max_over_ranks(float(maxd.max()), devices[0])
     ref = global_max if reference_max_diameter is None else float(reference_max_diameter)
     sizes = batch_sizes(ref, global_max, cfg)
 

@@ -45,7 +45,7 @@ from mmap import ACCESS_READ, mmap
 import numpy as np
 import torch
 
-from pywindow_torch import native, tables
+from pywindow_torch import native, profiling, tables
 from pywindow_torch.config import DEFAULT_CONFIG, pad_multiple
 from pywindow_torch.io.outputs import Output, to_list
 from pywindow_torch.molecular import MolecularSystem
@@ -340,6 +340,7 @@ class Trajectory:
                 key: mol.full_analysis(device=device) for key, mol in molecules.items()
             }
 
+    @profiling.entry_point("analysis_batched", "sweep")
     def analysis_batched(
         self,
         frames="all",
@@ -410,7 +411,8 @@ class Trajectory:
         try:
             swept = False
             if not modular and not exact_sizes:
-                opened = self._sweep_open_native(todo, swap_atoms, forcefield)
+                with stage("sweep_open"):
+                    opened = self._sweep_open_native(todo, swap_atoms, forcefield)
                 if opened is not None:
                     swept = self._analysis_batched_stream(
                         todo, *opened, batch_size, reference_max_diameter, size_gate,
@@ -529,10 +531,11 @@ class Trajectory:
                     results, pin = self._dispatch_all(systems, ref_g, device)
                     # saturated molecules re-run escalated, at the
                     # chunk's pin, before anything is recorded
-                    results = batch.retry_saturated_windows(
-                        systems, results, DEFAULT_CONFIG, reference_max_diameter=pin,
-                        device=device,
-                    )
+                    with stage("sweep_retry"):
+                        results = batch.retry_saturated_windows(
+                            systems, results, DEFAULT_CONFIG, reference_max_diameter=pin,
+                            device=device,
+                        )
                     for (frame, key), (els, _), props in zip(jobs, systems, results):
                         props.pop("molecular_weight", None)
                         props["no_of_atoms"] = len(els)
