@@ -138,15 +138,146 @@ inline bool parse_double_at(
     return true;
 }
 
+// Uniform bin index of the unit-cell and supercell coordinates: two bin
+// grids of one geometry over the bounding box of both sets.  The bin
+// edge is at least max_dist * (1 + 1e-4), so every pair closer than
+// max_dist lies in the same or adjacent bins; the 27 bins around an
+// atom hold every candidate bond partner.  Atoms with a non-finite
+// coordinate are left out: their distance to anything fails the
+// d < max_dist test.  Within a bin, atoms are in ascending index.
+struct BinIndex {
+    static constexpr double kMaxBins = 1 << 20;  // caps memory at 16 MiB
+
+    long dims[3] = {1, 1, 1};
+    double lo[3] = {0.0, 0.0, 0.0};
+    double inv_h = 0.0;  // 0: one bin (a non-finite extent)
+    double h = 0.0;
+    // per grid: bin b holds items[start[b] .. start[b + 1])
+    std::vector<int64_t> start[2], items[2];
+
+    static bool finite3(const double* p) {
+        return std::isfinite(p[0]) && std::isfinite(p[1]) &&
+               std::isfinite(p[2]);
+    }
+
+    long axis_bin(const double* p, int a) const {
+        const double t = std::floor((p[a] - lo[a]) * inv_h);
+        if (!(t > 0.0)) return 0;
+        return t >= static_cast<double>(dims[a] - 1) ? dims[a] - 1
+                                                     : static_cast<long>(t);
+    }
+
+    long bin_of(const double* p) const {
+        return (axis_bin(p, 0) * dims[1] + axis_bin(p, 1)) * dims[2] +
+               axis_bin(p, 2);
+    }
+
+    BinIndex(long n, const double* coords, long ns, const double* scoords,
+             double max_dist) {
+        double hi[3] = {0.0, 0.0, 0.0};
+        bool any = false;
+        for (int g = 0; g < 2; ++g) {
+            const long m = g == 0 ? n : ns;
+            const double* xyz = g == 0 ? coords : scoords;
+            for (long j = 0; j < m; ++j) {
+                const double* p = xyz + 3 * j;
+                if (!finite3(p)) continue;
+                for (int a = 0; a < 3; ++a) {
+                    if (!any || p[a] < lo[a]) lo[a] = p[a];
+                    if (!any || p[a] > hi[a]) hi[a] = p[a];
+                }
+                any = true;
+            }
+        }
+        double ext[3];
+        bool finite_ext = true;
+        for (int a = 0; a < 3; ++a) {
+            ext[a] = hi[a] - lo[a];
+            finite_ext = finite_ext && std::isfinite(ext[a]);
+        }
+        h = max_dist * (1.0 + 1e-4);
+        if (finite_ext && h > 0.0 && std::isfinite(h)) {
+            // a larger bin only adds candidates, so enlarging h to keep
+            // a stray far atom from blowing up the grid stays exact
+            auto bins = [&](int a) { return std::floor(ext[a] / h) + 1.0; };
+            while (bins(0) * bins(1) * bins(2) > kMaxBins) h *= 2.0;
+            for (int a = 0; a < 3; ++a) dims[a] = static_cast<long>(bins(a));
+            inv_h = 1.0 / h;
+        }
+        const long nbins = dims[0] * dims[1] * dims[2];
+        for (int g = 0; g < 2; ++g) {
+            const long m = g == 0 ? n : ns;
+            const double* xyz = g == 0 ? coords : scoords;
+            std::vector<int64_t> bin(static_cast<size_t>(m), -1);
+            start[g].assign(static_cast<size_t>(nbins) + 1, 0);
+            for (long j = 0; j < m; ++j) {
+                if (!finite3(xyz + 3 * j)) continue;
+                bin[j] = bin_of(xyz + 3 * j);
+                ++start[g][bin[j] + 1];
+            }
+            for (long b = 0; b < nbins; ++b) start[g][b + 1] += start[g][b];
+            // stable counting sort: ascending index within each bin
+            items[g].resize(static_cast<size_t>(start[g][nbins]));
+            std::vector<int64_t> fill(start[g].begin(), start[g].end() - 1);
+            for (long j = 0; j < m; ++j)
+                if (bin[j] >= 0) items[g][fill[bin[j]]++] = j;
+        }
+    }
+
+    // grid g's atoms in the 27 bins around p, ascending; none for a
+    // non-finite p (nothing lies within max_dist of it)
+    void candidates(int g, const double* p, std::vector<int64_t>& out) const {
+        out.clear();
+        if (!finite3(p)) return;
+        long b[3];
+        for (int a = 0; a < 3; ++a) b[a] = axis_bin(p, a);
+        for (long x = std::max(b[0] - 1, 0L);
+             x <= std::min(b[0] + 1, dims[0] - 1); ++x)
+            for (long y = std::max(b[1] - 1, 0L);
+                 y <= std::min(b[1] + 1, dims[1] - 1); ++y)
+                for (long z = std::max(b[2] - 1, 0L);
+                     z <= std::min(b[2] + 1, dims[2] - 1); ++z) {
+                    const long k = (x * dims[1] + y) * dims[2] + z;
+                    out.insert(out.end(), items[g].begin() + start[g][k],
+                               items[g].begin() + start[g][k + 1]);
+                }
+        std::sort(out.begin(), out.end());
+    }
+};
+
 }  // namespace
 
 extern "C" {
 
+// Builds the bin index of one discrete_molecules call (its coordinates
+// and max_dist), shared by all of its pw_bfs_molecule calls; free it
+// with pw_bin_index_free.  Writes the bins per axis to dims_out and the
+// bin edge to edge_out.  Returns null when memory runs out.
+void* pw_bin_index_new(long n, const double* coords, long ns,
+                       const double* scoords, double max_dist,
+                       long* dims_out, double* edge_out) {
+    BinIndex* index = nullptr;
+    try {
+        index = new BinIndex(n, coords, ns, scoords, max_dist);
+    } catch (...) {
+        return nullptr;
+    }
+    for (int a = 0; a < 3; ++a) dims_out[a] = index->dims[a];
+    *edge_out = index->h;
+    return index;
+}
+
+void pw_bin_index_free(void* index) { delete static_cast<BinIndex*>(index); }
+
 // Runs one molecule's BFS from `seed`. Returns the number of collected
 // entries, or -1 if `cap` is too small. `unassigned` is mutated.
 // out_src[k] = 0 (unit cell) / 1 (supercell); out_idx[k] indexes into
-// the respective coordinate array.
+// the respective coordinate array.  `index` is pw_bin_index_new's of
+// these coordinates; each expanded heavy atom tests only the atoms of
+// its 27 bins, in ascending index, so the discovery order is that of a
+// scan over all atoms.  The distance tests made are added to *pairs.
 long pw_bfs_molecule(
+    const void* index,
     long n, const double* coords, const double* cov,
     const uint8_t* heavy, const int64_t* key_id,
     long ns, const double* scoords, const double* scov,
@@ -154,13 +285,16 @@ long pw_bfs_molecule(
     const int64_t* s_match_unit,  // unit index with identical value, or -1
     double max_dist, double tol, long seed,
     uint8_t* unassigned,
-    int32_t* out_src, int64_t* out_idx, long cap) {
+    int32_t* out_src, int64_t* out_idx, long cap, int64_t* pairs) {
     struct Entry { int32_t src; int64_t idx; };
+    const BinIndex& bins = *static_cast<const BinIndex*>(index);
 
     std::vector<Entry> frontier;
     std::unordered_set<int64_t> in_frontier, in_molecule, next_keys;
     std::vector<Entry> next;
     std::vector<uint8_t> pool(static_cast<size_t>(n));
+    std::vector<int64_t> near;
+    int64_t tests = 0;
 
     long count = 0;
     frontier.push_back({0, seed});
@@ -191,9 +325,11 @@ long pw_bfs_molecule(
             const double rc = e.src == 0 ? cov[e.idx] : scov[e.idx];
 
             // unit-cell neighbours, ascending index
-            for (long j = 0; j < n; ++j) {
+            bins.candidates(0, pos, near);
+            for (const int64_t j : near) {
                 if (!pool[j]) continue;
                 if (e.src == 0 && j == e.idx) continue;
+                ++tests;
                 const double d = dist3(pos, coords + 3 * j);
                 if (!(d > 0.1) || !(d < max_dist)) continue;
                 const double rcv = rc + cov[j];
@@ -206,7 +342,9 @@ long pw_bfs_molecule(
                 }
             }
             // supercell neighbours, ascending index
-            for (long j = 0; j < ns; ++j) {
+            bins.candidates(1, pos, near);
+            for (const int64_t j : near) {
+                ++tests;
                 const double d = dist3(pos, scoords + 3 * j);
                 if (!(d > 0.1) || !(d < max_dist)) continue;
                 const double rcv = rc + scov[j];
@@ -238,6 +376,7 @@ long pw_bfs_molecule(
             if (e.src == 0) unassigned[e.idx] = 0;
         }
     }
+    *pairs += tests;
     return count;
 }
 

@@ -2,7 +2,8 @@
 ``pywindow_tpu.native``).
 
 ``_native/rebuild_core.cpp`` holds the host loops that feed the device
-pipeline: the exact-parity BFS of the periodic rebuild, the one-pass
+pipeline: the exact-parity BFS of the periodic rebuild over a bin index
+of its coordinates (:class:`BinIndex`), the one-pass
 DL_POLY HISTORY map with its integrity check, and the DL_POLY, XYZ and
 PDB frame decoders (one frame, or a whole sweep on several threads).
 
@@ -38,6 +39,7 @@ import os
 import pathlib
 import subprocess
 import tempfile
+import weakref
 
 import numpy as np
 
@@ -104,10 +106,16 @@ def lib() -> ctypes.CDLL:
     c_f = ctypes.POINTER(ctypes.c_float)
     c_vp = ctypes.c_void_p
     c_l = ctypes.c_long
+    L.pw_bin_index_new.restype = c_vp
+    L.pw_bin_index_new.argtypes = [
+        c_l, c_d, c_l, c_d, ctypes.c_double, ctypes.POINTER(c_l), c_d,
+    ]
+    L.pw_bin_index_free.restype = None
+    L.pw_bin_index_free.argtypes = [c_vp]
     L.pw_bfs_molecule.restype = c_l
     L.pw_bfs_molecule.argtypes = [
-        c_l, c_d, c_d, c_u8, c_i64, c_l, c_d, c_d, c_u8, c_i64, c_i64,
-        ctypes.c_double, ctypes.c_double, c_l, c_u8, c_i32, c_i64, c_l,
+        c_vp, c_l, c_d, c_d, c_u8, c_i64, c_l, c_d, c_d, c_u8, c_i64, c_i64,
+        ctypes.c_double, ctypes.c_double, c_l, c_u8, c_i32, c_i64, c_l, c_i64,
     ]
     L.pw_decode_dlpoly_frame.restype = c_l
     L.pw_decode_dlpoly_frame.argtypes = [
@@ -149,6 +157,35 @@ def _ids(buf, count: int) -> np.ndarray:
     return np.frombuffer(buf.raw, dtype="S9", count=count).astype("<U8")
 
 
+class BinIndex:
+    """The native bin index of one rebuild's coordinates: the unit cell's
+    ``coords`` and the supercell's ``scoords`` (or none) in two grids of
+    one geometry, bins of edge ``edge`` >= ``max_dist`` * (1 + 1e-4),
+    ``dims`` bins per axis (at most 2**20 in all: a far stray atom
+    enlarges the edge).  Built once and shared by the rebuild's
+    :func:`bfs_molecule` calls; the library's memory is freed with the
+    object."""
+
+    def __init__(self, coords: np.ndarray, scoords: np.ndarray | None, max_dist: float) -> None:
+        coords = _f64(coords).reshape(-1, 3)
+        scoords = np.zeros((0, 3)) if scoords is None else _f64(scoords).reshape(-1, 3)
+        dims = (ctypes.c_long * 3)()
+        edge = ctypes.c_double()
+        handle = lib().pw_bin_index_new(
+            len(coords), _ptr(coords, ctypes.c_double), len(scoords),
+            _ptr(scoords, ctypes.c_double), float(max_dist), dims, ctypes.byref(edge),
+        )
+        CALLS["bin_index"] += 1
+        if not handle:
+            msg = f"bin_index: out of memory for {len(coords)} + {len(scoords)} atoms"
+            raise MemoryError(msg)
+        self.handle = handle
+        self.sizes = (len(coords), len(scoords))
+        self.dims = tuple(dims)
+        self.edge = edge.value
+        weakref.finalize(self, lib().pw_bin_index_free, handle)
+
+
 def bfs_molecule(
     seed: int,
     unassigned: np.ndarray,
@@ -163,15 +200,23 @@ def bfs_molecule(
     s_match_unit: np.ndarray | None,
     max_dist: float,
     tol: float,
-) -> tuple[np.ndarray, np.ndarray]:
+    *,
+    index: BinIndex,
+) -> tuple[np.ndarray, np.ndarray, int]:
     """One molecule's BFS from ``seed``: (source (0 unit cell, 1
-    supercell), index) of its atoms in discovery order.  ``unassigned``
-    (uint8, C-contiguous) is updated in place."""
+    supercell), index) of its atoms in discovery order, and the number
+    of distance tests it made.  ``unassigned`` (uint8, C-contiguous) is
+    updated in place.  ``index`` is the :class:`BinIndex` of ``coords``
+    and ``scoords`` under this ``max_dist``: each expanded heavy atom
+    tests the atoms of its 27 bins alone."""
     if unassigned.dtype != np.uint8 or not unassigned.flags["C_CONTIGUOUS"]:
         msg = "unassigned must be a C-contiguous uint8 array (updated in place)"
         raise TypeError(msg)
     n = len(coords)
     ns = 0 if scoords is None else len(scoords)
+    if index.sizes != (n, ns):
+        msg = f"bfs_molecule: the index holds {index.sizes} atoms, not {(n, ns)}"
+        raise ValueError(msg)
     if ns == 0:
         scoords, scov = np.zeros((0, 3)), np.zeros(0)
         sheavy = np.zeros(0, dtype=np.uint8)
@@ -179,7 +224,9 @@ def bfs_molecule(
     cap = n + ns
     out_src = np.empty(cap, dtype=np.int32)
     out_idx = np.empty(cap, dtype=np.int64)
+    pairs = np.zeros(1, dtype=np.int64)
     got = lib().pw_bfs_molecule(
+        index.handle,
         n, _ptr(_f64(coords), ctypes.c_double), _ptr(_f64(cov), ctypes.c_double),
         _ptr(np.ascontiguousarray(heavy, dtype=np.uint8), ctypes.c_uint8),
         _ptr(np.ascontiguousarray(key_id, dtype=np.int64), ctypes.c_int64),
@@ -189,13 +236,13 @@ def bfs_molecule(
         _ptr(np.ascontiguousarray(s_match_unit, dtype=np.int64), ctypes.c_int64),
         float(max_dist), float(tol), int(seed),
         _ptr(unassigned, ctypes.c_uint8), _ptr(out_src, ctypes.c_int32),
-        _ptr(out_idx, ctypes.c_int64), cap,
+        _ptr(out_idx, ctypes.c_int64), cap, _ptr(pairs, ctypes.c_int64),
     )
     CALLS["bfs_molecule"] += 1
     if got < 0:
         msg = f"bfs_molecule: output capacity {cap} exceeded"
         raise RuntimeError(msg)
-    return out_src[:got], out_idx[:got]
+    return out_src[:got], out_idx[:got], int(pairs[0])
 
 
 def decode_dlpoly_frame(raw: bytes, keytrj: int, has_cell: bool, n_atoms_hint: int):

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from pywindow_torch import native, tables
-from pywindow_torch.profiling import stage
+from pywindow_torch.profiling import METRICS, stage
 from pywindow_torch.ops.cell import (
     cart_to_frac,
     unit_cell_to_lattice_array,
@@ -98,11 +98,13 @@ def discrete_molecules(
 
     ``use_native`` runs each molecule's BFS in the native core
     (:func:`pywindow_torch.native.bfs_molecule`, built at first use; a
-    failed build raises); ``use_native=False`` runs the numpy BFS, its
-    plain version.  Both give the same molecules in the same order.  A
-    system with two atoms of identical value (element, id and
-    coordinates) takes the numpy BFS either way: the native core's value
-    interning needs unique keys.
+    failed build raises), over one bin index of the call's coordinates,
+    so each expanded atom tests only its neighbours' bins (the tests
+    made are counted as ``rebuild_bfs_pairs`` while profiling is on);
+    ``use_native=False`` runs the numpy BFS, its plain version.  Both
+    give the same molecules in the same order.  A system with two atoms
+    of identical value (element, id and coordinates) takes the numpy BFS
+    either way: the native core's value interning needs unique keys.
     """
     mode = _pick_mode(system, rebuild)
     if "elements" not in system:
@@ -237,6 +239,7 @@ def discrete_molecules(
                         if rebuild is not None
                         else None
                     ),
+                    "index": None,
                 }
 
     while unassigned.any():
@@ -249,7 +252,11 @@ def discrete_molecules(
         if native_ctx is not None:
             un_u8 = unassigned.astype(np.uint8)
             with stage("rebuild_bfs"):
-                src_arr, idx_arr = native.bfs_molecule(
+                if native_ctx["index"] is None:  # once a call, in its first span
+                    native_ctx["index"] = native.BinIndex(
+                        coords, s_coords if rebuild is not None else None, max_dist
+                    )
+                src_arr, idx_arr, pairs = native.bfs_molecule(
                     int(seed),
                     un_u8,
                     coords,
@@ -263,7 +270,9 @@ def discrete_molecules(
                     native_ctx["smatch"],
                     max_dist,
                     tol,
+                    index=native_ctx["index"],
                 )
+            METRICS.count("rebuild_bfs_pairs", pairs)
             unassigned[:] = un_u8.astype(bool)
             with stage("rebuild_assemble"):
                 mol_entries = [

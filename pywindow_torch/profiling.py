@@ -33,8 +33,9 @@ registered with the garbage collector.  On:
   busiest device's (:func:`settle_shards`);
 * :data:`METRICS` counts what the analysis feeds it: molecules analysed,
   windows found, refinements failed, re-runs by reason
-  (``analysis_reruns.<reason>``, ``frames_retried.<reason>``) and the
-  streamed sweep's restarts (``sweep_restarts``).
+  (``analysis_reruns.<reason>``, ``frames_retried.<reason>``), the
+  streamed sweep's restarts (``sweep_restarts``) and the distance tests
+  of the periodic rebuild's native BFS (``rebuild_bfs_pairs``).
 
 ``trace(log_dir)`` records a ``torch.profiler`` trace of the CPU (every
 thread, where the installed torch can) and, where there is a card, of

@@ -1,8 +1,8 @@
 """The native host library of pywindow_torch: its decoders against the
 Python decoders (their plain versions) and against pywindow_tpu's
 native decoders on the same bytes, its HISTORY map against the Python
-map and pywindow_tpu's, its BFS against the numpy BFS, and a failed
-build that raises.  Everything here is exact: the same text parses to
+map and pywindow_tpu's, its BFS against the numpy BFS, the BFS's
+distance-test counter, and a failed build that raises.  Everything here is exact: the same text parses to
 the same doubles and the same ids."""
 
 import numpy as np
@@ -10,9 +10,10 @@ import pytest
 
 import pywindow_torch as pt
 import pywindow_tpu as pw
-from pywindow_torch import native
+from pywindow_torch import native, profiling
 from pywindow_torch.ops.cell import create_supercell
 from pywindow_torch.ops.rebuild import discrete_molecules
+from pywindow_torch.profiling import METRICS
 from pywindow_tpu import native as jnative
 from tests.conftest import DATA, load_xyz
 
@@ -178,6 +179,40 @@ def test_native_bfs_matches_numpy(rebuild):
     for ma, mb in zip(a, b):
         for key in ("elements", "coordinates", "atom_ids"):
             np.testing.assert_array_equal(ma[key], mb[key])
+
+
+def test_bfs_pairs_counter(monkeypatch):
+    """With profiling on, the rebuild counts its BFS's distance tests
+    as ``rebuild_bfs_pairs``: under 0.1% of an all-pairs scan's (each
+    expanded heavy atom against every unit-cell and supercell atom).
+    With profiling off, the counter does not move."""
+    system = pt.Input().load_file(DATA / "system_periodic.pdb")
+    sc = create_supercell(system)
+    expanded = []
+    real = native.bfs_molecule
+
+    def spy(*args, **kwargs):
+        src, idx, pairs = real(*args, **kwargs)
+        heavy, sheavy = args[4], args[8]
+        expanded.append(int(heavy[idx[src == 0]].sum()) + int(sheavy[idx[src == 1]].sum()))
+        return src, idx, pairs
+
+    monkeypatch.setattr(native, "bfs_molecule", spy)
+    saved = profiling.enabled()
+    METRICS.reset()
+    try:
+        profiling.enable(False)
+        discrete_molecules(system, rebuild=sc)
+        assert "rebuild_bfs_pairs" not in METRICS.snapshot()["counters"]
+        expanded.clear()
+        profiling.enable()
+        discrete_molecules(system, rebuild=sc)
+        pairs = METRICS.snapshot()["counters"]["rebuild_bfs_pairs"]
+    finally:
+        profiling.enable(saved)
+        METRICS.reset()
+    all_pairs = sum(expanded) * (len(system["elements"]) + len(sc["elements"]))
+    assert 0 < pairs < 1e-3 * all_pairs
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -12,6 +12,7 @@ import pytest
 
 import pywindow_torch as pt
 import pywindow_tpu as pw
+from pywindow_torch import native
 from pywindow_torch.ops.cell import create_supercell
 from pywindow_torch.ops.rebuild import connected_components_fast, discrete_molecules
 from pywindow_tpu.ops.cell import create_supercell as jcreate_supercell
@@ -77,6 +78,54 @@ def test_discrete_molecules_match_jax(name, rebuild, use_native):
             assert sorted(g) == sorted(r)
             for key in r:
                 np.testing.assert_array_equal(g[key], r[key])
+
+
+def _far_atom(system):
+    """``system`` with one carbon 1e4 A from its centroid along every
+    axis: the bin grid's extent then forces its bin cap."""
+    far = {k: v for k, v in system.items() if k not in ("elements", "coordinates", "atom_ids")}
+    far["elements"] = np.append(system["elements"], "C")
+    far["atom_ids"] = np.append(system["atom_ids"], "C")
+    tip = np.asarray(system["coordinates"]).mean(axis=0) + 1e4
+    far["coordinates"] = np.vstack([system["coordinates"], tip])
+    return far
+
+
+#: the indexed BFS's cases: three seeded translated-and-wrapped frames
+#: of the periodic cell (the benchmark's periodic trajectory), with and
+#: without their supercell; a system with no cell; one with a far atom
+INDEXED_CASES = [
+    *[("frame", seed, rebuild) for rebuild in (True, False) for seed in (7, 2**31 + 5, 90210)],
+    ("mol_system", None, False),
+    ("far_atom", None, False),
+]
+
+
+@pytest.mark.parametrize(("kind", "seed", "rebuild"), INDEXED_CASES)
+def test_indexed_bfs_matches_jax_all_pairs(kind, seed, rebuild, tmp_path):
+    """The native BFS over its bin index against the JAX package's
+    all-pairs native BFS: the same molecules, atoms and order, exactly."""
+    from portbench.inputs import periodic
+
+    if kind == "frame":
+        path = periodic.write(tmp_path / "frame.pdb", 1, seed, "system_periodic.pdb").path
+    else:
+        path = DATA / ("mol_system.pdb" if kind == "mol_system" else "system.pdb")
+    system, jsystem = pt.Input().load_file(path), pw.Input().load_file(path)
+    if kind == "far_atom":
+        system, jsystem = _far_atom(system), _far_atom(jsystem)
+        index = native.BinIndex(system["coordinates"], None, 1.9)
+        assert np.prod(index.dims) <= 2**20
+        assert index.edge > 50 * 1.9
+    sc = create_supercell(system) if rebuild else None
+    jsc = jcreate_supercell(jsystem) if rebuild else None
+    got = discrete_molecules(system, rebuild=sc)
+    ref = jdiscrete_molecules(jsystem, rebuild=jsc, use_native=True)
+    assert len(got) == len(ref) > 0
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r)
+        for key in r:
+            np.testing.assert_array_equal(g[key], r[key])
 
 
 def test_cell_algebra_matches_jax():
