@@ -575,6 +575,8 @@ def _sweep_frames(
         def dispatch(lo: int, hi: int):
             m = hi - lo
             chunk_cfg = cfg_live["cfg"]
+            if chunk_cfg is not cfg:
+                METRICS.count("frames_at_learned_caps", m)
             shards = shard_bounds(pad_batch_to_devices(m, len(lanes)), len(lanes))
 
             def enqueue(i: int, dev: torch.device):
@@ -652,6 +654,9 @@ def _sweep_frames(
             if learn_caps and nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
                 cfg_live["cfg"] = nxt
                 LEARNED_CAPS.put(esc_key, nxt)
+                for field in ("open_cap_frac", "max_windows"):
+                    if getattr(nxt, field) != getattr(live, field):
+                        METRICS.count(f"caps_learned.{field}")
             with stage("sweep_on_batch"):
                 on_batch(positions, results)
 
@@ -741,13 +746,15 @@ def retry_saturated_windows(
     Pops the markers from every result; ``escalation_sink`` receives the
     counts per marker (``open_overflow``, ``budget``, ``window_sat``) and
     the sorted indices whose results a re-run replaced (``redone``).  The
-    molecules re-run count as ``frames_retried.<marker>``.
+    molecules re-run count as ``frames_retried.<marker>``; each re-run
+    is a ``sweep_rerun`` span whose id ``reason`` is its marker.
     """
     redone: set = set()
 
     def rerun(idxs: list[int], cfg2: AnalysisConfig, reason: str) -> None:
         METRICS.count(f"frames_retried.{reason}", len(idxs))
-        redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
+        with stage("sweep_rerun", reason=reason):
+            redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
         for i, r in zip(idxs, redo):
             results[i] = r
         redone.update(idxs)

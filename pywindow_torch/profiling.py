@@ -31,11 +31,18 @@ registered with the garbage collector.  On:
   chunk's fetch), so the timer adds no synchronisation; a host span on
   the CPU.  A chunk sharded over several devices books one span, its
   busiest device's (:func:`settle_shards`);
+* a sweep's re-runs of escalated frames are ``sweep_rerun`` spans
+  whose id ``reason`` is the marker (``open_overflow``, ``budget``,
+  ``window_sat``), inside ``sweep_retry``;
 * :data:`METRICS` counts what the analysis feeds it: molecules analysed,
   windows found, refinements failed, re-runs by reason
   (``analysis_reruns.<reason>``, ``frames_retried.<reason>``), the
-  streamed sweep's restarts (``sweep_restarts``) and the distance tests
-  of the periodic rebuild's native BFS (``rebuild_bfs_pairs``).
+  streamed sweep's restarts (``sweep_restarts``), the escalated caps a
+  sweep stores for its later chunks and sweeps
+  (``caps_learned.<field>``: ``open_cap_frac``, ``max_windows``), the
+  frames of chunks dispatched at such learned caps
+  (``frames_at_learned_caps``) and the distance tests of the periodic
+  rebuild's native BFS (``rebuild_bfs_pairs``).
 
 ``trace(log_dir)`` records a ``torch.profiler`` trace of the CPU (every
 thread, where the installed torch can) and, where there is a card, of
