@@ -17,7 +17,8 @@ slab k+1 on a thread while the device runs chunk k, moves each chunk's
 coordinates from pinned host slabs on a side stream, and fetches and
 converts its results on a collector thread.  Molecules whose run
 outgrew a static cap, or an optimiser's fast budget, re-run escalated
-(:func:`retry_saturated_windows`); a sweep whose chunks mostly escalate
+(:func:`retry_saturated_windows`), a sweep's fast-budget frames in one
+batch after its last chunk; a sweep whose chunks mostly escalate
 opens later chunks, and later sweeps of the same system, at the
 escalated caps (:data:`LEARNED_CAPS`).
 """
@@ -369,10 +370,15 @@ def sweep_uniform(
     of a sweep these frames are one part of).  ``learn_caps=False``
     opens every chunk at ``cfg`` and escalates frame by frame, reading
     and writing no :data:`LEARNED_CAPS`.  ``on_batch(positions,
-    results)`` receives each chunk's frame positions and dicts, in order;
-    ``on_rows(positions, rows, redone)``, when given, first receives the
-    chunk's packed rows as fetched (markers in) and ``{index in the
-    chunk: dict}`` of the frames whose dicts came from a re-run.
+    results)`` receives each chunk's frame positions and final dicts, in
+    chunk order, except the frames whose fast run stopped on an
+    optimiser budget: those are held back, re-run together at the full
+    budgets after the last chunk (or once a chunk's worth is held), and
+    delivered in one more call.  No frame is delivered twice.
+    ``on_rows(positions, rows, redone)``, when given, first receives
+    each such call's packed rows as fetched (markers in; a chunk's
+    rows include its held-back frames) and ``{index in the call: dict}``
+    of the frames whose dicts came from a re-run.
     """
     if coords.shape[0] == 0:
         return
@@ -417,8 +423,10 @@ def sweep_stream(
     (or ``reference_max_diameter``); when a later slab makes the discrete
     sampling sizes grow, the sweep restarts over the decoded frames at
     the new sizes and ``on_batch`` receives their results again,
-    overwriting.  The results are those of :func:`sweep_uniform` on the
-    same frames, which runs the same loop with the sizes known up front.
+    overwriting.  The results, and their delivery (each chunk's final
+    dicts, the frames held back for the full-budget re-run in one more
+    call), are those of :func:`sweep_uniform` on the same frames, which
+    runs the same loop with the sizes known up front.
 
     ``size_gate``: a dict whose ``"final"`` key the sweep keeps true
     exactly while no escalation can come any more (every frame decoded,
@@ -497,16 +505,23 @@ def _sweep_frames(
     chunk k; up to :data:`_PIPELINE_DEPTH` chunks are dispatched ahead of
     the one being collected; one collector thread fetches each chunk's
     packed results, converts them, re-runs the saturated frames and
-    calls ``on_batch``, in chunk order.  On the card the store of decoded
-    frames is pinned host memory that the decoder fills in one native
-    pass and nothing rewrites, so a shard's coordinates go from it to
-    its device on a side stream whose event the compute stream waits
-    on, and the retries read the same store; the chunk loop never
-    synchronises a device.  On the CPU (which the caller asks for) the
-    store is a plain host array.  A short last chunk runs at its own
-    size.  Over several devices each chunk is sharded as in
-    :func:`dispatch_batch`, its padding rows copies of its first frame;
-    ``sweep_step`` books one span a chunk
+    calls ``on_batch``, in chunk order.  Frames that stopped on a fast
+    optimiser budget are not re-run there: the pass holds them back,
+    with the config their chunk ran at, and once every chunk is
+    collected (or a chunk's worth is held, after collecting every chunk
+    in flight) re-runs them at the full budgets in one
+    :func:`analyze_batch` per config, from the main thread with nothing
+    else queued on the devices, and delivers them in one more
+    ``on_batch`` call; a restart drops them with the pass.  On the card
+    the store of decoded frames is pinned host memory that the decoder
+    fills in one native pass and nothing rewrites, so a shard's
+    coordinates go from it to its device on a side stream whose event
+    the compute stream waits on, and the retries read the same store;
+    the chunk loop never synchronises a device.  On the CPU (which the
+    caller asks for) the store is a plain host array.  A short last
+    chunk runs at its own size.  Over several devices each chunk is
+    sharded as in :func:`dispatch_batch`, its padding rows copies of its
+    first frame; ``sweep_step`` books one span a chunk
     (:func:`~pywindow_torch.profiling.settle_shards`).
     """
     if n_frames == 0:
@@ -571,6 +586,11 @@ def _sweep_frames(
         c = max_safe_batch(n_pad, pin, cfg, device) if batch_size is None else int(batch_size)
         c = max(1, min(c, n_frames))
         plan = chunk_plan(n_frames, c)
+        # the pass's frames whose fast run stopped on an optimiser budget,
+        # held back from their chunks' deliveries: (chunk config,
+        # positions, packed rows for on_rows); a restart drops them
+        held: list = []
+        state["held"] = 0
 
         def dispatch(lo: int, hi: int):
             m = hi - lo
@@ -624,15 +644,23 @@ def _sweep_frames(
             del parts, handle
             results = _to_dicts(flat, chunk_cfg)
             esc: dict = {}
+            deferred: list = []
             with stage("sweep_retry"):
                 results = retry_saturated_windows(
                     [(elements, retry_src[i]) for i in range(lo, hi)],
-                    results, chunk_cfg, escalation_sink=esc,
+                    results, chunk_cfg, escalation_sink=esc, defer_budget=deferred,
                     reference_max_diameter=pin, device=device,
                 )
             positions = np.arange(lo, hi, dtype=np.int64)
             if on_rows is not None:
                 on_rows(positions, flat, {i: results[i] for i in esc["redone"]})
+            if deferred:
+                # held back for the pass's gathered full-budget re-run
+                held.append((chunk_cfg, positions[deferred], flat[deferred] if on_rows else None))
+                state["held"] += len(deferred)
+                skip = set(deferred)
+                positions = np.delete(positions, deferred)
+                results = [r for i, r in enumerate(results) if i not in skip]
             # sticky escalation for later chunks, only when the marker is
             # endemic (a majority of the chunk): a stray frame is cheaper
             # through the per-chunk retry it just took.  A chunk already
@@ -660,6 +688,34 @@ def _sweep_frames(
             with stage("sweep_on_batch"):
                 on_batch(positions, results)
 
+        def rerun_held() -> None:
+            """The held-back frames re-run at the full budgets, one
+            ``analyze_batch`` per config they ran at, and delivered in
+            one call; run with no chunk in flight, so that the batch
+            waits for no other work on the device."""
+            runs = collections.defaultdict(list)
+            for chunk_cfg, pos, rows in held:
+                runs[chunk_cfg].append((pos, rows))
+            METRICS.count("frames_budget_gathered", state["held"])
+            held.clear()
+            state["held"] = 0
+            positions, rows, results = [], [], []
+            with stage("sweep_retry"):
+                for chunk_cfg, parts in runs.items():
+                    pos = np.concatenate([p for p, _ in parts])
+                    results += _rerun(
+                        [(elements, retry_src[i]) for i in pos],
+                        dataclasses.replace(chunk_cfg, fast_budgets=False), "budget",
+                        reference_max_diameter=pin, device=device,
+                    )
+                    positions.append(pos)
+                    rows += [r for _, r in parts]
+            positions = np.concatenate(positions)
+            if on_rows is not None:
+                on_rows(positions, np.concatenate(rows), dict(enumerate(results)))
+            with stage("sweep_on_batch"):
+                on_batch(positions, results)
+
         escalated = False
         with (
             ThreadPoolExecutor(max_workers=1) as collector,
@@ -673,6 +729,12 @@ def _sweep_frames(
                 k0, lo0, hi0, h0 = inflight.popleft()
                 job = collector.submit(profiling.call, {**ids, "chunk": k0}, finish, lo0, hi0, h0)
                 collects.append((k0, job))
+
+            def collect_all() -> None:
+                while inflight:
+                    queue_collect()
+                while collects:
+                    collects.popleft()[1].result()
 
             for k, (lo, hi) in enumerate(plan, first):
                 # this chunk's frames must be decoded
@@ -705,16 +767,21 @@ def _sweep_frames(
                     k0, job = collects.popleft()
                     with stage("sweep_collect_wait", chunk=k0):
                         job.result()
+                # a chunk's worth of held-back frames re-runs at once,
+                # which bounds what a long sweep holds back
+                if state["held"] >= c:
+                    with stage("sweep_drain"):
+                        collect_all()
+                    rerun_held()
             # drain (also on the escalated break: the prefetch writes
             # the store the restart reads)
             with stage("sweep_drain"):
                 if pending is not None:
                     pending.result()
-                while inflight:
-                    queue_collect()
-                while collects:
-                    collects.popleft()[1].result()
+                collect_all()
         if not escalated:
+            if held:
+                rerun_held()
             return
         METRICS.count("sweep_restarts")
         first += len(plan)
@@ -725,11 +792,21 @@ def _sweep_frames(
         )
 
 
+def _rerun(systems, cfg: AnalysisConfig, reason: str, **analyze_kwargs) -> list[dict]:
+    """``analyze_batch`` of escalated molecules at ``cfg``: a
+    ``sweep_rerun`` span whose id ``reason`` is the marker, its
+    molecules counted as ``frames_retried.<reason>``."""
+    METRICS.count(f"frames_retried.{reason}", len(systems))
+    with stage("sweep_rerun", reason=reason):
+        return analyze_batch(systems, cfg, **analyze_kwargs)
+
+
 def retry_saturated_windows(
     systems,
     results: list[dict],
     cfg: AnalysisConfig,
     escalation_sink: dict | None = None,
+    defer_budget: list | None = None,
     **analyze_kwargs,
 ) -> list[dict]:
     """Re-run the molecules whose device run outgrew a static cap
@@ -743,6 +820,12 @@ def retry_saturated_windows(
       re-run with a doubled ``max_windows`` (up to
       :data:`~pywindow_torch.config.MAX_WINDOWS_CEILING`).
 
+    A molecule re-run at the full budgets is not re-run for its windows
+    as well: that re-run's own retry handles them.  ``defer_budget``: a
+    list that receives the indices of the fast-budget molecules instead
+    of re-running them (their results stay the fast run's, for the
+    caller to replace by one full-budget re-run of its own).
+
     Pops the markers from every result; ``escalation_sink`` receives the
     counts per marker (``open_overflow``, ``budget``, ``window_sat``) and
     the sorted indices whose results a re-run replaced (``redone``).  The
@@ -752,9 +835,7 @@ def retry_saturated_windows(
     redone: set = set()
 
     def rerun(idxs: list[int], cfg2: AnalysisConfig, reason: str) -> None:
-        METRICS.count(f"frames_retried.{reason}", len(idxs))
-        with stage("sweep_rerun", reason=reason):
-            redo = analyze_batch([systems[i] for i in idxs], cfg2, **analyze_kwargs)
+        redo = _rerun([systems[i] for i in idxs], cfg2, reason, **analyze_kwargs)
         for i, r in zip(idxs, redo):
             results[i] = r
         redone.update(idxs)
@@ -764,10 +845,18 @@ def retry_saturated_windows(
         rerun(over, dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac), "open_overflow")
 
     budget = [i for i, r in enumerate(results) if r.pop("_opt_budget_exceeded", False)]
+    deferred: set = set()
     if budget and cfg.fast_budgets:
-        rerun(budget, dataclasses.replace(cfg, fast_budgets=False), "budget")
+        if defer_budget is None:
+            rerun(budget, dataclasses.replace(cfg, fast_budgets=False), "budget")
+        else:
+            defer_budget.extend(budget)
+            deferred.update(budget)
 
-    idxs = [i for i, r in enumerate(results) if r.pop("_window_cap_saturated", False)]
+    idxs = [
+        i for i, r in enumerate(results)
+        if r.pop("_window_cap_saturated", False) and i not in deferred
+    ]
     if idxs and cfg.max_windows >= MAX_WINDOWS_CEILING:
         logger.warning(
             "%d molecule(s) still saturate max_windows=%d at the escalation "

@@ -37,7 +37,9 @@ registered with the garbage collector.  On:
 * :data:`METRICS` counts what the analysis feeds it: molecules analysed,
   windows found, refinements failed, re-runs by reason
   (``analysis_reruns.<reason>``, ``frames_retried.<reason>``), the
-  streamed sweep's restarts (``sweep_restarts``), the escalated caps a
+  frames a sweep held back from their chunks for its gathered
+  full-budget re-run (``frames_budget_gathered``), the streamed
+  sweep's restarts (``sweep_restarts``), the escalated caps a
   sweep stores for its later chunks and sweeps
   (``caps_learned.<field>``: ``open_cap_frac``, ``max_windows``), the
   frames of chunks dispatched at such learned caps

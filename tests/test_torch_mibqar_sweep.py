@@ -16,6 +16,8 @@ stores the doubled cap in ``LEARNED_CAPS`` (``parallel/batch.py``,
 - The ``sweep_rerun`` span (id ``reason``) and the counters
   ``caps_learned.<field>`` and ``frames_at_learned_caps`` move only
   while profiling is on.
+- At the learned cap, frames that stop on a fast budget re-run in one
+  gathered batch with the per-chunk re-runs' dicts, bit for bit.
 
 The frames are ``portbench/inputs/thermal.py``'s (MIBQAR.pdb plus a
 thermal displacement), the one of largest maximum diameter first, so
@@ -39,6 +41,7 @@ from pywindow_torch import profiling
 from pywindow_torch.config import DEFAULT_CONFIG
 from pywindow_torch.ops.analysis import max_dim_host
 from pywindow_torch.parallel import batch
+from tests.test_torch_budget_gather import _per_chunk, _watched
 from tests.test_torch_stream import _assert_identical
 
 FRAMES = 24
@@ -283,6 +286,35 @@ def test_rerun_span_and_counters_only_while_profiling(learned, unlearned, on):
         assert snap["counters"]["frames_retried.open_overflow"] > 0
     else:
         assert snap == {"counters": {}, "stage_seconds": {}, "stage_calls": {}}
+
+
+def test_budget_reruns_gathered_at_the_learned_cap(history):
+    """At the learned open cap, with a Nelder-Mead fast budget of 54
+    iterations, frames of both chunks stop on a budget: the sweep holds
+    them back and re-runs them in one batch, and its dicts equal those
+    of the per-chunk re-runs bit for bit."""
+    _, elements, coords = history
+    coords = coords[:4]
+    maxd = batch.frame_max_diameters(elements, coords, "cpu")
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG, open_cap_frac=2 * DEFAULT_CONFIG.open_cap_frac, fast_nm_maxiter=54
+    )
+
+    def sweep(on_batch):
+        batch.sweep_uniform(elements, coords, maxd, on_batch, cfg, batch_size=2, device="cpu")
+
+    with pytest.MonkeyPatch.context() as mp:
+        _per_chunk(mp)
+        ref = _watched(sweep)
+    got = _watched(sweep)
+    budget = [s["budget"] for s in ref["sinks"]]
+    assert got["sinks"] == ref["sinks"] and all(budget) and sum(budget) < 4
+    assert ref["reruns"].count("budget") == 2 and got["reruns"].count("budget") == 1
+    assert got["counters"]["frames_budget_gathered"] == got["counters"]["frames_retried.budget"] == sum(budget)
+    assert len(got["deliveries"]) == 3 and sum(map(len, got["deliveries"])) == 4
+    assert sorted(got["dicts"]) == sorted(ref["dicts"]) == list(range(4))
+    for k in range(4):
+        _assert_identical(got["dicts"][k], ref["dicts"][k])
 
 
 @pytest.mark.parametrize(
