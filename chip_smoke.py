@@ -109,21 +109,16 @@ result line):
    timed beside the dbscan kernel on the same points;
 12. the frame mesh and the multi-process sweep, run after phase 6's
    legs on its 4,320-frame history at ``batch_size=1440`` (profiling
-   off): (a) ``analysis_batched(device="cuda")``, the default's cards
-   (``parallel.mesh.shard_devices``), against
-   ``device="cuda:0"``; (b) two shards on one card,
-   ``device=["cuda:0", "cuda:0"]``, once as a main path and then timed;
-   (c) two ``gloo`` ranks on the
+   off): (a) ``analysis_batched(device="cuda")``, the default's card
+   (``parallel.mesh.frame_device``), once as a main path and then
+   timed against ``device="cuda:0"``; (c) two ``gloo`` ranks on the
    first card and (d) one NCCL rank, each a subprocess
    (``python3 chip_smoke.py --rank-worker ...``, :func:`rank_worker`)
    with its own timeout, through
    ``parallel.distributed.analysis_batched_distributed``: each rank
    decodes only its own shard, launches all six pipeline kernels,
    loads no JAX and holds all 4,320 frames; (e) with more than one
-   card, one process over the first k cards for every k at chunks of
-   720 to 4,320 frames and REYMAL batches over k cards (the
-   measurement behind ``parallel.mesh.shard_devices``), then one NCCL
-   rank a card.
+   card, one NCCL rank a card.
    Every leg equals (a)'s ``cuda:0`` run bit for bit on every value of
    every frame; frames/s beside the card's name and power limit.
    ``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 12 alone;
@@ -154,7 +149,7 @@ result line):
 ``PYWINDOW_TORCH_DEVICE``, where set, must name the card (``cuda`` or
 ``cuda:N``): the script refuses to start otherwise.
 
-Phases 4-6, 8, 9, 10, 11, 14 and 12's two-shard run are the main paths: before each the kernel
+Phases 4-6, 8, 9, 10, 11, 14 and 12's first ``"cuda"`` run are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
 have launched (all six pipeline kernels; ``clearance_min`` and its three
 helper passes on its grid);
@@ -2749,9 +2744,6 @@ def phase_walkthroughs() -> None:
 SWEEP_FF = {"swap_atoms": {"he": "H"}, "forcefield": "OPLS"}
 #: seconds a rank of phase 12 may run (start-up, kernel load, two sweeps)
 RANK_TIMEOUT = 300
-#: chunk sizes of phase 12's scan over cards, and REYMAL batch sizes
-SCAN_CHUNKS = (720, 1440, 2160, 4320)
-WIDE_COUNTS = (480, 1440)
 
 
 def frame_dicts(traj) -> dict:
@@ -2800,67 +2792,6 @@ def timed_turns(label: str, path: pathlib.Path, specs: dict, ref: dict, chunk=SW
     return rates
 
 
-def wide_scan(n_cards: int) -> None:
-    """(e), one process, a wider system: ``analyze_batch`` of
-    :data:`WIDE_COUNTS` copies of REYMAL (468 atoms, ~7.8x CC3's atom
-    pairs) over the first k cards and over an unindexed ``"cuda"``
-    (``mesh.shard_devices``), in turns forward then backward, every
-    result equal to the one-card run's bit for bit."""
-    from pywindow_torch.parallel import batch, mesh
-
-    m = molecule("REYMAL")
-    for count in WIDE_COUNTS:
-        systems = [(m.elements, m.coordinates)] * count
-        specs = {f"{k} card(s)": [f"cuda:{i}" for i in range(k)] for k in range(1, n_cards + 1)}
-        specs['"cuda"'] = "cuda"
-        ref = batch.analyze_batch(systems, device="cuda:0")
-        for spec in specs.values():  # a first call on each layout, untimed
-            batch.analyze_batch(systems, device=spec)
-        rates: dict = {name: [] for name in specs}
-        for name in list(specs) + list(specs)[::-1]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = batch.analyze_batch(systems, device=specs[name])
-            torch.cuda.synchronize()
-            rates[name].append(count / (time.perf_counter() - t0))
-            same_dicts(got, ref)
-        shown = "; ".join(f"{k} {json.dumps([round(r, 1) for r in v])}" for k, v in rates.items())
-        used = [str(d) for d in mesh.shard_devices("cuda")]
-        print(
-            f"(e) analyze_batch of {count} REYMAL copies: {shown} molecules/s (\"cuda\" on "
-            f"{used}); every result equal to one card's bit for bit"
-        )
-
-
-def shard_scan(path: pathlib.Path, n_cards: int, ref: dict) -> None:
-    """(e), one process: the sweep over the first k cards for every k,
-    at chunks of 720, 1,440, 2,160 and 4,320 frames (shards of 180 to
-    4,320), k = 1 the one-card baseline of each chunk; :func:`wide_scan`;
-    then an unindexed
-    ``"cuda"`` (``mesh.shard_devices``) against ``"cuda:0"`` at 1,440 and
-    at the memory-sized default chunk."""
-    from pywindow_torch.parallel import mesh
-
-    for chunk in SCAN_CHUNKS:
-        specs = {f"{k} card(s)": [f"cuda:{i}" for i in range(k)] for k in range(1, n_cards + 1)}
-        rates = timed_turns(f"(e) chunks of {chunk}", path, specs, ref, chunk)
-        one = min(rates["1 card(s)"])
-        for k in range(2, n_cards + 1):
-            got = rates[f"{k} card(s)"]
-            print(
-                f"(e) chunks of {chunk}, {k} cards, shards of {chunk // k}: "
-                f"{'faster' if min(got) > max(rates['1 card(s)']) else 'not faster'} than one card "
-                f"in every pair ({min(got) / one:.3f}x its slower reading at the worst)"
-            )
-    wide_scan(n_cards)
-    for chunk in (SWEEP_CHUNK, None):
-        used = [str(d) for d in mesh.shard_devices("cuda")]
-        timed_turns(
-            f'(e) "cuda" (a chunk on {used}) against "cuda:0", chunks of {chunk or "the default"}',
-            path, {"cuda": "cuda", "cuda:0": "cuda:0"}, ref, chunk,
-        )
-
-
 def rank_worker(argv: list[str]) -> None:
     """One rank of phase 12, run as ``python3 chip_smoke.py --rank-worker
     RANK WORLD PORT BACKEND DEVICE HISTORY OUT``: joins the process group,
@@ -2903,7 +2834,7 @@ def rank_worker(argv: list[str]) -> None:
     same_frames(f"rank {rank}: warm against cold", frame_dicts(traj), first)
     report = {
         "rank": int(rank), "device": str(dev), "backend": torch.distributed.get_backend(),
-        "devices": [str(d) for d in mesh.frame_devices(device)],
+        "devices": [str(mesh.frame_device(device))],
         "ranks_on": mesh.ranks_on(dev), "decoded": decoded, "launches": launches,
         "cold_s": cold, "warm_s": warm, "plan": plan,
         "jax": [m for m in ("jax", "pywindow_tpu") if m in sys.modules],
@@ -3000,12 +2931,11 @@ def phase_mesh(pipeline_calls: list, smi: str) -> None:
     """Phase 12: the frame mesh and the multi-process sweep on the
     4,320-frame history of phase 6 at batch_size 1,440 (profiling off):
     (a) ``analysis_batched(device="cuda")`` against ``device="cuda:0"``,
-    timed in turns after an untimed run of each; (b) two shards on one
-    card, ``device=["cuda:0", "cuda:0"]``, once as a main path (launches
-    counted, every pipeline call's launches recorded), then timed; (c)
-    two gloo ranks on cuda:0; (d) one NCCL rank; (e) with more cards,
-    :func:`shard_scan` and one NCCL rank a card.  Every leg's 4,320
-    dicts equal (a)'s on cuda:0 bit for bit."""
+    the first ``"cuda"`` run a main path (launches counted, every
+    pipeline call's launches recorded), then timed in turns; (c) two
+    gloo ranks on cuda:0; (d) one NCCL rank; (e) with more cards, one
+    NCCL rank a card.  Every leg's 4,320 dicts equal (a)'s on cuda:0
+    bit for bit."""
     from pywindow_torch import profiling
     from pywindow_torch.parallel import mesh
 
@@ -3014,27 +2944,16 @@ def phase_mesh(pipeline_calls: list, smi: str) -> None:
     path = synth_history(SWEEP_FRAMES)
     n_cards = torch.cuda.device_count()
     try:
-        # the reference, and a first run on every card (its first
-        # pipeline calls there), untimed
+        # the reference, untimed
         ref, _ = mesh_sweep(path, "cuda:0")
         check(len(ref) == SWEEP_FRAMES, f"mesh: {len(ref)} frames on cuda:0")
-        for k in range(1, n_cards):  # a card's first sweep is slow
-            mesh_sweep(path, f"cuda:{k}")
-        got, _ = mesh_sweep(path, "cuda")
+        with main_path("frame mesh", pipeline_calls):
+            got, _ = mesh_sweep(path, "cuda")
         same_frames('(a) device="cuda"', got, ref)
-        used = [str(d) for d in mesh.shard_devices("cuda")]
         timed_turns(
-            f'(a) device="cuda" (a chunk on {used}) against "cuda:0"', path,
+            f'(a) device="cuda" (on {mesh.frame_device("cuda")}) against "cuda:0"', path,
             {"cuda": "cuda", "cuda:0": "cuda:0"}, ref,
         )
-
-        two = ["cuda:0", "cuda:0"]
-        with main_path("frame mesh", pipeline_calls):
-            got, _ = mesh_sweep(path, two)
-        same_frames("(b) two shards on cuda:0", got, ref)
-        timed_turns("(b) two shards on cuda:0 against one", path, {"two": two, "one": "cuda:0"}, ref)
-        if n_cards > 1:
-            shard_scan(path, n_cards, ref)
 
         reports = run_ranks("(c)", path, 2, "gloo", "cuda:0", one_card=True)
         slowest = check_ranks("(c)", reports, ref, 2)

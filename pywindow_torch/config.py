@@ -183,3 +183,34 @@ DEFAULT_CONFIG = AnalysisConfig()
 
 #: bound of the automatic max_windows doubling.
 MAX_WINDOWS_CEILING = 64
+
+#: the escalation markers of a device run's properties dict, by reason,
+#: in the order a molecule's re-runs take them
+ESCALATION_MARKERS = {
+    "open_overflow": "_open_cap_overflow",
+    "budget": "_opt_budget_exceeded",
+    "window_sat": "_window_cap_saturated",
+}
+
+
+def escalate(cfg: AnalysisConfig, reason: str) -> AnalysisConfig | None:
+    """The config a molecule re-runs at when its run at ``cfg`` raised
+    the marker of ``reason`` (:data:`ESCALATION_MARKERS`), or None when
+    that marker escalates no further:
+
+    - ``open_overflow``: ``open_cap_frac`` doubled;
+    - ``budget``: the full optimiser budgets, once (a full-budget run
+      that still caps matches scipy's own maxiter stop);
+    - ``window_sat``: ``max_windows`` doubled, up to
+      :data:`MAX_WINDOWS_CEILING`.
+    """
+    if reason == "open_overflow":
+        return dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac)
+    if reason == "budget":
+        return dataclasses.replace(cfg, fast_budgets=False) if cfg.fast_budgets else None
+    if reason == "window_sat":
+        if cfg.max_windows >= MAX_WINDOWS_CEILING:
+            return None
+        return dataclasses.replace(cfg, max_windows=min(2 * cfg.max_windows, MAX_WINDOWS_CEILING))
+    msg = f"escalate: unknown reason {reason!r}"
+    raise ValueError(msg)

@@ -386,22 +386,21 @@ class MolecularSystem:
         (reference: molecular.py:818)."""
         return Molecule(self.system, str(self.system_id), 0)
 
-    def analyze_molecules(self, device: torch.device | str | list | None = None) -> dict:
+    def analyze_molecules(self, device: torch.device | str | None = None) -> dict:
         """Full analysis of every molecule of :meth:`make_modular` as one
-        batch on ``device`` (every local card unless the caller asks for
-        others or the CPU; see
-        :func:`~pywindow_torch.parallel.mesh.frame_devices`) -> ``{molecule
-        key: properties}``; each :class:`Molecule`'s ``properties`` are
-        filled in place, and its getters analyse on ``device`` (the
-        first device of a list)."""
+        batch on ``device`` (the card unless the caller asks for the CPU;
+        see :func:`~pywindow_torch.parallel.mesh.frame_device`) ->
+        ``{molecule key: properties}``; each :class:`Molecule`'s
+        ``properties`` are filled in place, and its getters analyse on
+        ``device``."""
+        from pywindow_torch.parallel.batch import analyze_batch
+        from pywindow_torch.parallel.mesh import frame_device
+
+        frame_device(device)  # raises before any work
         if not self.molecules:
             msg = "no molecules; run make_modular() first"
             raise RuntimeError(msg)
-        from pywindow_torch.parallel.batch import analyze_batch
-        from pywindow_torch.parallel.mesh import frame_devices
-
         keys = list(self.molecules)
-        own = frame_devices(device)[0] if isinstance(device, (list, tuple)) else device
         results = analyze_batch(
             [(self.molecules[k].elements, self.molecules[k].coordinates) for k in keys],
             device=device,
@@ -411,7 +410,7 @@ class MolecularSystem:
             mol.MW = props.pop("molecular_weight")
             mol.properties.update(props)
             mol._sync_attributes()
-            mol.device = own
+            mol.device = device
             mol._analysed = True
         return {k: self.molecules[k].properties for k in keys}
 

@@ -13,7 +13,6 @@ the result into the reference's properties-dict schema;
 
 from __future__ import annotations
 
-import dataclasses
 import logging
 from typing import NamedTuple
 
@@ -23,10 +22,11 @@ import torch
 from pywindow_torch import profiling, tables
 from pywindow_torch.config import (
     DEFAULT_CONFIG,
-    MAX_WINDOWS_CEILING,
+    ESCALATION_MARKERS,
     OPT_DTYPE,
     AnalysisConfig,
     effective_budgets,
+    escalate,
     pore_opt_mode,
     resolve_device,
 )
@@ -325,7 +325,8 @@ def analyze(
     Re-runs with a doubled compaction fraction when the open rays
     overflowed the cap, at the full optimiser budgets when a fast budget
     stopped an optimiser, and with a doubled window cap when the
-    clusters filled every slot (up to MAX_WINDOWS_CEILING); each re-run
+    clusters filled every slot (up to MAX_WINDOWS_CEILING), by
+    :func:`~pywindow_torch.config.escalate`; each re-run
     is an ``analysis_rerun`` span and counts as
     ``analysis_reruns.<reason>``.
     """
@@ -337,24 +338,11 @@ def analyze(
         sizes = static_sizes(maxd, cfg)
     res, props = _analysis_pass(mol, sizes, cfg)
     while True:
-        overflow = props.pop("_open_cap_overflow", False)
-        budget = props.pop("_opt_budget_exceeded", False)
-        saturated = props.pop("_window_cap_saturated", False)
-        if overflow:
-            cfg = dataclasses.replace(
-                cfg, open_cap_frac=2.0 * cfg.open_cap_frac
-            )
-            reason = "open_overflow"
-        elif budget and cfg.fast_budgets:
-            # only once: a full-budget run that still caps matches
-            # scipy's own maxiter stop
-            cfg = dataclasses.replace(cfg, fast_budgets=False)
-            reason = "budget"
-        elif saturated and cfg.max_windows < MAX_WINDOWS_CEILING:
-            cfg = dataclasses.replace(cfg, max_windows=2 * cfg.max_windows)
-            reason = "window_sat"
-        else:
+        hit = [reason for reason, marker in ESCALATION_MARKERS.items() if props.pop(marker, False)]
+        step = next(((r, nxt) for r in hit if (nxt := escalate(cfg, r)) is not None), None)
+        if step is None:
             break
+        reason, cfg = step
         METRICS.count(f"analysis_reruns.{reason}")
         with stage("analysis_rerun", reason=reason):
             res, props = _analysis_pass(mol, sizes, cfg)

@@ -4,21 +4,20 @@
 A chunk of B molecules runs the whole pipeline as one batch with a
 leading frame axis (:func:`pywindow_torch.ops.analysis.run_pipeline`):
 each kernel sees all of the chunk's frames in one launch, so the number
-of launches per chunk does not depend on B.  ``device`` names one device
-or several (:func:`~pywindow_torch.parallel.mesh.frame_devices`: an
-unindexed ``"cuda"`` is every local card); over several, a chunk is
-padded to a multiple of the device count with copies of its first
-system, split into contiguous equal shards, and every shard runs the
-pipeline with the same static sizes on its own device, the padding
-sliced off on collect.  Chunks are sized to the devices' free memory by
-:func:`max_safe_batch`.  A sweep over frames of
+of launches per chunk does not depend on B.  ``device`` names the one
+device of the process (:func:`~pywindow_torch.parallel.mesh.frame_device`:
+an unindexed ``"cuda"`` is the rank's card, else ``cuda:0``); several
+cards run as ranks, one a card
+(:mod:`pywindow_torch.parallel.distributed`).  Chunks are sized to the
+device's free memory by :func:`max_safe_batch`.  A sweep over frames of
 one element list (:func:`sweep_stream`, :func:`sweep_uniform`) decodes
 slab k+1 on a thread while the device runs chunk k, moves each chunk's
 coordinates from pinned host slabs on a side stream, and fetches and
 converts its results on a collector thread.  Molecules whose run
 outgrew a static cap, or an optimiser's fast budget, re-run escalated
-(:func:`retry_saturated_windows`), a sweep's fast-budget frames in one
-batch after its last chunk; a sweep whose chunks mostly escalate
+(:func:`retry_saturated_windows`, by
+:func:`~pywindow_torch.config.escalate`), a sweep's fast-budget frames
+in one batch after its last chunk; a sweep whose chunks mostly escalate
 opens later chunks, and later sweeps of the same system, at the
 escalated caps (:data:`LEARNED_CAPS`).
 """
@@ -26,6 +25,7 @@ escalated caps (:data:`LEARNED_CAPS`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 from concurrent.futures import ThreadPoolExecutor
@@ -36,9 +36,10 @@ import torch
 from pywindow_torch import profiling, tables
 from pywindow_torch.config import (
     DEFAULT_CONFIG,
-    MAX_WINDOWS_CEILING,
+    ESCALATION_MARKERS,
     AnalysisConfig,
     default_dtype,
+    escalate,
     pad_multiple,
 )
 from pywindow_torch.ops import analysis as _analysis
@@ -59,14 +60,7 @@ from pywindow_torch.ops.encoding import (
 from pywindow_torch.ops.geometry import pairwise_distances
 from pywindow_torch.ops.ray_kernels import MAX_FRAMES
 from pywindow_torch.ops.windows import open_cap
-from pywindow_torch.parallel.mesh import (
-    DeviceSpec,
-    frame_devices,
-    pad_batch_to_devices,
-    ranks_on,
-    shard_bounds,
-    shard_devices,
-)
+from pywindow_torch.parallel.mesh import DeviceSpec, frame_device, ranks_on
 from pywindow_torch.profiling import METRICS, stage
 
 logger = logging.getLogger("pywindow_torch")
@@ -138,26 +132,20 @@ def max_safe_batch(
     budget: int | None = None,
 ) -> int:
     """Largest batch whose working memory (:func:`frame_bytes`) fits the
-    devices' budgets, with at most the frames one ray-kernel launch takes
-    (:data:`~pywindow_torch.ops.ray_kernels.MAX_FRAMES`) on each device.
+    device's budget, with at most the frames one ray-kernel launch takes
+    (:data:`~pywindow_torch.ops.ray_kernels.MAX_FRAMES`).
 
-    Over several devices the batch splits into one equal shard a device;
-    a device's budget (:func:`memory_budget` unless ``budget`` is given)
-    is split between the shards it runs and the ranks of the process
-    group that run on it (:func:`~pywindow_torch.parallel.mesh.ranks_on`),
-    since each of them would otherwise plan with all of its memory (the
-    devices of :func:`~pywindow_torch.parallel.mesh.shard_devices`)."""
-    devices = shard_devices(device)
+    The device's budget (:func:`memory_budget` unless ``budget`` is
+    given) is split between the ranks of the process group that run on
+    it (:func:`~pywindow_torch.parallel.mesh.ranks_on`), since each of
+    them would otherwise plan with all of its memory."""
+    dev = frame_device(device)
     n_pad = round_up(max(n_atoms, 1), pad_multiple())
     n_win, _, l1, _ = static_sizes(max_diameter, cfg)
     k = open_cap(n_win, cfg.open_cap_frac) or n_win
-    per_frame = frame_bytes(n_pad, n_win, k, l1, cfg.max_windows, devices[0].type)
-    per_shard = MAX_FRAMES
-    for dev in set(devices):
-        total = memory_budget(dev) if budget is None else budget
-        sharers = devices.count(dev) * ranks_on(dev)
-        per_shard = min(per_shard, int(total // sharers // per_frame))
-    return max(1, per_shard) * len(devices)
+    per_frame = frame_bytes(n_pad, n_win, k, l1, cfg.max_windows, dev.type)
+    total = memory_budget(dev) if budget is None else budget
+    return max(1, min(MAX_FRAMES, int(total // ranks_on(dev) // per_frame)))
 
 
 def chunk_plan(n_frames: int, c: int) -> list[tuple[int, int]]:
@@ -169,9 +157,9 @@ def chunk_plan(n_frames: int, c: int) -> list[tuple[int, int]]:
 
 def frame_max_diameters(elements: np.ndarray, coords: np.ndarray, device: DeviceSpec) -> np.ndarray:
     """Exact vdW-corrected maximum diameter of every frame (F, N, 3) of
-    one element list, in float64 on ``device`` (the first of several;
-    chunked by memory); the sweep pins its sampling sizes from these."""
-    device = frame_devices(device)[0]
+    one element list, in float64 on ``device`` (chunked by memory); the
+    sweep pins its sampling sizes from these."""
+    device = frame_device(device)
     vdw = torch.as_tensor(
         tables.ELEMENT_VDW[tables.element_ids(elements)], dtype=torch.float64,
         device=device,
@@ -188,8 +176,8 @@ def frame_max_diameters(elements: np.ndarray, coords: np.ndarray, device: Device
 
 def _largest_exact_maxd(systems, device: DeviceSpec) -> float:
     """Exact maximum diameter of the largest member of ``systems``,
-    computed on ``device`` (the first of several) in float64 chunks."""
-    device = frame_devices(device)[0]
+    computed on ``device`` in float64 chunks."""
+    device = frame_device(device)
     best = 0.0
     for lo in range(0, len(systems), 256):
         part = systems[lo : lo + 256]
@@ -201,18 +189,13 @@ def _largest_exact_maxd(systems, device: DeviceSpec) -> float:
     return best
 
 
-def _on_shards(devices: list[torch.device], fn) -> list:
-    """``fn(i, devices[i])`` for every shard i, in turn from the calling
-    thread (a thread a shard was slower on one card and on four: PERF.md
-    §6).  On the card each call runs with its device current and
-    on the calling thread's stream of that device."""
-    if devices[0].type != "cuda":
-        return [fn(i, dev) for i, dev in enumerate(devices)]
-    out = []
-    for i, dev in enumerate(devices):
-        with torch.cuda.stream(torch.cuda.current_stream(dev)):  # makes dev current too
-            out.append(fn(i, dev))
-    return out
+def _on_device(dev: torch.device):
+    """A context that makes ``dev`` the calling thread's current card,
+    and its current stream of that card the stream work goes to (none
+    on the CPU)."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(torch.cuda.current_stream(dev))
 
 
 def dispatch_batch(
@@ -229,33 +212,20 @@ def dispatch_batch(
 
     The static sizes cover the largest member: ray paths from the
     batch's bound, sampling counts from ``reference_max_diameter``
-    (default: the batch's exact largest maximum diameter, reduced on the
-    first device).  Over several devices
-    (:func:`~pywindow_torch.parallel.mesh.shard_devices`) every shard
-    takes these sizes and the batch's atom padding: no shard sizes
-    itself.  ``span``: a device span of that name for the batch, booked
-    by the collect (:func:`~pywindow_torch.profiling.settle_shards`).
+    (default: the batch's exact largest maximum diameter).  ``span``: a
+    device span of that name for the batch, booked by the collect.
     """
-    b = len(systems)
+    dev = frame_device(device)
     if pad_atoms is None:
         pad_atoms = round_up(max(max(len(e) for e, _ in systems), 1), pad_multiple())
-    devices = shard_devices(device)
     bounds = [max_dim_bound(e, c) for e, c in systems]
     if reference_max_diameter is None:
-        reference_max_diameter = _largest_exact_maxd(systems, devices[0])
+        reference_max_diameter = _largest_exact_maxd(systems, dev)
     sizes = batch_sizes(reference_max_diameter, max(bounds), cfg)
-    padded = list(systems) + [systems[0]] * (pad_batch_to_devices(b, len(devices)) - b)
-    parts = shard_bounds(len(padded), len(devices))
-
-    def run(i: int, dev: torch.device):
-        lo, hi = parts[i]
-        with profiling.device_stage(span, dev, book=False) as shard:
-            mols = encode_batch(padded[lo:hi], pad_to=pad_atoms, device=dev)
-            flat = _analysis.run_pipeline(mols, sizes, cfg)
-        return flat, (dev, shard)
-
-    shards = _on_shards(devices, run)
-    return ([f for f, _ in shards], b, cfg, reference_max_diameter, span, [s for _, s in shards])
+    with _on_device(dev), profiling.device_stage(span, dev) as timed:
+        mols = encode_batch(systems, pad_to=pad_atoms, device=dev)
+        flat = _analysis.run_pipeline(mols, sizes, cfg)
+    return flat, cfg, reference_max_diameter, timed
 
 
 def _to_dicts(flat: np.ndarray, cfg: AnalysisConfig) -> list[dict]:
@@ -276,15 +246,13 @@ def _to_dicts(flat: np.ndarray, cfg: AnalysisConfig) -> list[dict]:
 
 
 def collect_batch(handle) -> list[dict]:
-    """Fetch a dispatched batch (one device-to-host transfer a shard),
-    in frame order without the padding, and convert it to properties
-    dicts (with the escalation markers still in)."""
-    flats, b, cfg, _, span, shards = handle
+    """Fetch a dispatched batch (one device-to-host transfer), book its
+    device span, and convert it to properties dicts (with the escalation
+    markers still in)."""
+    flat, cfg, _, timed = handle
     with stage("sweep_fetch"):
-        parts = [f.cpu().numpy() for f in flats]
-        flat = (parts[0] if len(parts) == 1 else np.concatenate(parts))[:b]
-    if span:
-        profiling.settle_shards(span, shards)
+        flat = flat.cpu().numpy()
+    timed.settle()
     return _to_dicts(flat, cfg)
 
 
@@ -296,8 +264,9 @@ def analyze_batch(
     device: DeviceSpec | None = None,
 ) -> list[dict]:
     """Analyse many (elements, coordinates) systems as device batches on
-    ``device`` (every local card unless the caller asks for others or
-    the CPU); one reference-schema properties dict per system.
+    ``device`` (:func:`~pywindow_torch.parallel.mesh.frame_device`: the
+    card unless the caller asks for the CPU); one reference-schema
+    properties dict per system.
 
     The sampling-point count is one static for the batch, from
     ``reference_max_diameter`` (default: the largest member's maximum
@@ -306,6 +275,7 @@ def analyze_batch(
     it.  A batch larger than :func:`max_safe_batch` splits into chunks
     that share the pin.
     """
+    device = frame_device(device)
     if not systems:
         return []
     n_max = max(len(e) for e, _ in systems)
@@ -339,7 +309,7 @@ def analyze_batch(
     # subset keeps the batch's sampling-point count
     with stage("sweep_retry"):
         return retry_saturated_windows(
-            systems, results, cfg, reference_max_diameter=handle[3],
+            systems, results, cfg, reference_max_diameter=handle[2],
             pad_atoms=pad_atoms, device=device,
         )
 
@@ -445,6 +415,9 @@ def sweep_stream(
 _PIPELINE_DEPTH = 3
 #: frames decoded before the first dispatch when no batch size is given
 _FIRST_SLAB = 4320
+#: the config field a sweep learns from each endemic marker (see
+#: :func:`_sweep_frames`), by reason
+_LEARNED_FIELDS = {"open_overflow": "open_cap_frac", "window_sat": "max_windows"}
 
 
 def _fetch(flat_dev: torch.Tensor, done, stream) -> np.ndarray:
@@ -459,8 +432,8 @@ def _fetch(flat_dev: torch.Tensor, done, stream) -> np.ndarray:
 
 
 class _Lane:
-    """One shard position of a sweep's chunks: the per-atom fields on its
-    device and, on the card, its copy and fetch streams."""
+    """A sweep's device side: the per-atom fields on its device and, on
+    the card, its copy and fetch streams."""
 
     def __init__(self, device: torch.device, host_rows: tuple) -> None:
         cuda = device.type == "cuda"
@@ -501,7 +474,7 @@ def _sweep_frames(
     retries' source (and the store itself on a float64 pipeline).
     ``learn_caps``, ``on_rows``: see :func:`sweep_uniform`.
 
-    One thread decodes slab k+1 (``decode_slab``) while the devices run
+    One thread decodes slab k+1 (``decode_slab``) while the device runs
     chunk k; up to :data:`_PIPELINE_DEPTH` chunks are dispatched ahead of
     the one being collected; one collector thread fetches each chunk's
     packed results, converts them, re-runs the saturated frames and
@@ -511,32 +484,30 @@ def _sweep_frames(
     collected (or a chunk's worth is held, after collecting every chunk
     in flight) re-runs them at the full budgets in one
     :func:`analyze_batch` per config, from the main thread with nothing
-    else queued on the devices, and delivers them in one more
+    else queued on the device, and delivers them in one more
     ``on_batch`` call; a restart drops them with the pass.  On the card
     the store of decoded frames is pinned host memory that the decoder
-    fills in one native pass and nothing rewrites, so a shard's
-    coordinates go from it to its device on a side stream whose event
+    fills in one native pass and nothing rewrites, so a chunk's
+    coordinates go from it to the device on a side stream whose event
     the compute stream waits on, and the retries read the same store;
-    the chunk loop never synchronises a device.  On the CPU (which the
+    the chunk loop never synchronises the device.  On the CPU (which the
     caller asks for) the store is a plain host array.  A short last
-    chunk runs at its own size.  Over several devices each chunk is
-    sharded as in :func:`dispatch_batch`, its padding rows copies of its
-    first frame; ``sweep_step`` books one span a chunk
-    (:func:`~pywindow_torch.profiling.settle_shards`).
+    chunk runs at its own size.  ``sweep_step`` is one device span a
+    chunk.
     """
+    dev = frame_device(device)
     if n_frames == 0:
         return
-    devices = shard_devices(device)
-    cuda = devices[0].type == "cuda"
+    cuda = dev.type == "cuda"
     n = len(elements)
-    dtype = default_dtype(devices[0])
+    dtype = default_dtype(dev)
     np_dtype = numpy_dtype(dtype)
     n_pad = round_up(max(n, 1), pad_multiple())
 
     with stage("sweep_open"):
-        # constant per-atom fields: one host encode, one transfer a device
+        # constant per-atom fields: one host encode, one transfer
         _, mass, vdw, cov, mask = encode_host(elements, np.zeros((n, 3)), n_pad, np_dtype)
-        lanes = [_Lane(dev, (mass, vdw, cov, mask)) for dev in devices]
+        lane = _Lane(dev, (mass, vdw, cov, mask))
 
         # decoded frames accumulate in the pipeline dtype (a restart never
         # decodes again), pinned on the card; the retries read the float64
@@ -583,7 +554,7 @@ def _sweep_frames(
         pin, sizes = current_sizes()
         if size_gate is not None:
             size_gate["final"] = not streaming or state["decoded"] == n_frames
-        c = max_safe_batch(n_pad, pin, cfg, device) if batch_size is None else int(batch_size)
+        c = max_safe_batch(n_pad, pin, cfg, dev) if batch_size is None else int(batch_size)
         c = max(1, min(c, n_frames))
         plan = chunk_plan(n_frames, c)
         # the pass's frames whose fast run stopped on an optimiser budget,
@@ -597,51 +568,35 @@ def _sweep_frames(
             chunk_cfg = cfg_live["cfg"]
             if chunk_cfg is not cfg:
                 METRICS.count("frames_at_learned_caps", m)
-            shards = shard_bounds(pad_batch_to_devices(m, len(lanes)), len(lanes))
-
-            def enqueue(i: int, dev: torch.device):
-                lane, (a, b) = lanes[i], shards[i]
-                # rows [a, b) of the chunk: stored frames, then copies of
-                # the chunk's first frame past its end
-                rows = slice(lo + min(a, m), lo + min(b, m))
-                reps = max(0, b - max(a, m))
+            with _on_device(dev):
                 with stage("sweep_h2d"):
                     if cuda:
                         compute = torch.cuda.current_stream(dev)
                         with torch.cuda.stream(lane.copy):
-                            tight = store_t[rows].to(dev, non_blocking=True)
-                            first = store_t[lo : lo + 1].to(dev, non_blocking=True) if reps else None
+                            tight = store_t[lo:hi].to(dev, non_blocking=True)
                             copied = torch.cuda.Event()
                             copied.record(lane.copy)
                         compute.wait_event(copied)
-                        for t in (tight, first):
-                            if t is not None:
-                                t.record_stream(compute)
+                        tight.record_stream(compute)
                     else:
-                        tight = store_t[rows]
-                        first = store_t[lo : lo + 1]
-                with stage("sweep_dispatch"), profiling.device_stage("sweep_step", dev, book=False) as span:
-                    if reps:
-                        tight = torch.cat([tight, first.expand(reps, -1, -1)])
-                    coords = torch.cat([tight, tight.new_full((b - a, n_pad - n, 3), FAR_AWAY)], 1)
+                        tight = store_t[lo:hi]
+                with stage("sweep_dispatch"), profiling.device_stage("sweep_step", dev) as span:
+                    coords = torch.cat([tight, tight.new_full((m, n_pad - n, 3), FAR_AWAY)], 1)
                     flat = _analysis.run_pipeline(
-                        MolArrays(coords, *lane.fields_for(b - a)), sizes, chunk_cfg
+                        MolArrays(coords, *lane.fields_for(m)), sizes, chunk_cfg
                     )
                 done = None
                 if cuda:
                     done = torch.cuda.Event()
                     done.record(compute)
-                return flat, done, (dev, span)
-
-            return _on_shards(devices, enqueue), chunk_cfg
+            return flat, done, span, chunk_cfg
 
         def finish(lo: int, hi: int, handle) -> None:
-            parts, chunk_cfg = handle
+            flat_dev, done, span, chunk_cfg = handle
             with stage("sweep_fetch"):
-                got = [_fetch(f, done, lane.fetch) for lane, (f, done, _) in zip(lanes, parts)]
-                flat = got[0] if len(got) == 1 else np.concatenate(got)[: hi - lo]
-            profiling.settle_shards("sweep_step", [span for _, _, span in parts])
-            del parts, handle
+                flat = _fetch(flat_dev, done, lane.fetch)
+            span.settle()
+            del flat_dev, handle
             results = _to_dicts(flat, chunk_cfg)
             esc: dict = {}
             deferred: list = []
@@ -649,7 +604,7 @@ def _sweep_frames(
                 results = retry_saturated_windows(
                     [(elements, retry_src[i]) for i in range(lo, hi)],
                     results, chunk_cfg, escalation_sink=esc, defer_budget=deferred,
-                    reference_max_diameter=pin, device=device,
+                    reference_max_diameter=pin, device=dev,
                 )
             positions = np.arange(lo, hi, dtype=np.int64)
             if on_rows is not None:
@@ -669,20 +624,16 @@ def _sweep_frames(
             endemic = (hi - lo) // 2
             live = cfg_live["cfg"]
             nxt = live
-            if esc.get("open_overflow", 0) > endemic:
-                frac = 2.0 * chunk_cfg.open_cap_frac
-                if frac > nxt.open_cap_frac:
-                    nxt = dataclasses.replace(nxt, open_cap_frac=frac)
-            if esc.get("window_sat", 0) > endemic:
-                w = min(2 * chunk_cfg.max_windows, MAX_WINDOWS_CEILING)
-                if w > nxt.max_windows:
-                    nxt = dataclasses.replace(nxt, max_windows=w)
+            for reason, field in _LEARNED_FIELDS.items():
+                up = escalate(chunk_cfg, reason) if esc.get(reason, 0) > endemic else None
+                if up is not None and getattr(up, field) > getattr(nxt, field):
+                    nxt = dataclasses.replace(nxt, **{field: getattr(up, field)})
             # memory guard: keep the per-chunk retry when the escalated
             # config no longer fits a chunk
-            if learn_caps and nxt is not live and max_safe_batch(n_pad, pin, nxt, device) >= c:
+            if learn_caps and nxt is not live and max_safe_batch(n_pad, pin, nxt, dev) >= c:
                 cfg_live["cfg"] = nxt
                 LEARNED_CAPS.put(esc_key, nxt)
-                for field in ("open_cap_frac", "max_windows"):
+                for field in _LEARNED_FIELDS.values():
                     if getattr(nxt, field) != getattr(live, field):
                         METRICS.count(f"caps_learned.{field}")
             with stage("sweep_on_batch"):
@@ -705,8 +656,8 @@ def _sweep_frames(
                     pos = np.concatenate([p for p, _ in parts])
                     results += _rerun(
                         [(elements, retry_src[i]) for i in pos],
-                        dataclasses.replace(chunk_cfg, fast_budgets=False), "budget",
-                        reference_max_diameter=pin, device=device,
+                        escalate(chunk_cfg, "budget"), "budget",
+                        reference_max_diameter=pin, device=dev,
                     )
                     positions.append(pos)
                     rows += [r for _, r in parts]
@@ -810,7 +761,8 @@ def retry_saturated_windows(
     **analyze_kwargs,
 ) -> list[dict]:
     """Re-run the molecules whose device run outgrew a static cap
-    (counterpart of ``pywindow_tpu.parallel.batch.retry_saturated_windows``).
+    (counterpart of ``pywindow_tpu.parallel.batch.retry_saturated_windows``),
+    at the config :func:`~pywindow_torch.config.escalate` gives:
 
     - ``_open_cap_overflow``: the open rays overflowed the compaction
       cap: re-run with a doubled ``open_cap_frac``;
@@ -840,31 +792,33 @@ def retry_saturated_windows(
             results[i] = r
         redone.update(idxs)
 
-    over = [i for i, r in enumerate(results) if r.pop("_open_cap_overflow", False)]
-    if over:
-        rerun(over, dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac), "open_overflow")
+    def marked(reason: str) -> list[int]:
+        return [i for i, r in enumerate(results) if r.pop(ESCALATION_MARKERS[reason], False)]
 
-    budget = [i for i, r in enumerate(results) if r.pop("_opt_budget_exceeded", False)]
+    over = marked("open_overflow")
+    if over:
+        rerun(over, escalate(cfg, "open_overflow"), "open_overflow")
+
+    budget = marked("budget")
+    full = escalate(cfg, "budget")
     deferred: set = set()
-    if budget and cfg.fast_budgets:
+    if budget and full is not None:
         if defer_budget is None:
-            rerun(budget, dataclasses.replace(cfg, fast_budgets=False), "budget")
+            rerun(budget, full, "budget")
         else:
             defer_budget.extend(budget)
             deferred.update(budget)
 
-    idxs = [
-        i for i, r in enumerate(results)
-        if r.pop("_window_cap_saturated", False) and i not in deferred
-    ]
-    if idxs and cfg.max_windows >= MAX_WINDOWS_CEILING:
+    idxs = [i for i in marked("window_sat") if i not in deferred]
+    wider = escalate(cfg, "window_sat")
+    if idxs and wider is None:
         logger.warning(
             "%d molecule(s) still saturate max_windows=%d at the escalation "
             "ceiling; raise AnalysisConfig.max_windows",
             len(idxs), cfg.max_windows,
         )
     elif idxs:
-        rerun(idxs, dataclasses.replace(cfg, max_windows=2 * cfg.max_windows), "window_sat")
+        rerun(idxs, wider, "window_sat")
     if escalation_sink is not None:
         escalation_sink.update(
             open_overflow=len(over), budget=len(budget), window_sat=len(idxs),

@@ -8,11 +8,11 @@ Every rank
    decoder; per frame where it cannot take the frames),
 2. takes the sweep-wide sampling pin before any analysis: the largest
    maximum diameter over all ranks (``all_reduce`` MAX in float64),
-3. sweeps its shard at that fixed pin on its device
-   (:mod:`pywindow_torch.parallel.mesh`), each frame's escalations
-   re-run frame by frame within its chunk and no learned caps read or
-   written, so no decision depends on state another rank does not
-   share, and
+3. sweeps its shard at that fixed pin on its one device
+   (:func:`~pywindow_torch.parallel.mesh.frame_device`), each frame's
+   escalations re-run frame by frame within its chunk and no learned
+   caps read or written, so no decision depends on state another rank
+   does not share, and
 4. all-gathers its shard's packed result rows as one tensor
    (``all_gather``; ``packed_size(max_windows)`` values a frame) and the dicts
    of the few frames it re-ran (``all_gather_object``), and converts
@@ -20,8 +20,10 @@ Every rank
    every frame.
 
 The results equal the single-process ``analysis_batched`` over the same
-frames.  Bootstrap with :func:`initialize` (``torchrun`` exports what it
-reads); without it, or with one process, the sweep runs locally.
+frames.  This is how several cards serve one sweep: one process runs on
+one device, so four cards are four ranks, one a card.  Bootstrap with
+:func:`initialize` (``torchrun`` exports what it reads); without it, or
+with one process, the sweep runs locally.
 """
 
 from __future__ import annotations
@@ -34,10 +36,10 @@ import torch
 import torch.distributed as dist
 
 from pywindow_torch import native, profiling
-from pywindow_torch.config import DEFAULT_CONFIG, AnalysisConfig
+from pywindow_torch.config import DEFAULT_CONFIG, ESCALATION_MARKERS, AnalysisConfig
 from pywindow_torch.ops.analysis import batch_sizes, packed_size, to_properties_dicts_bulk
 from pywindow_torch.parallel import batch, mesh
-from pywindow_torch.parallel.mesh import DeviceSpec, frame_devices
+from pywindow_torch.parallel.mesh import DeviceSpec, frame_device
 from pywindow_torch.profiling import stage
 
 #: how long a rank waits at a barrier or in a collective for the others
@@ -66,7 +68,7 @@ def initialize(
     The arguments default to ``MASTER_ADDR:MASTER_PORT``, ``WORLD_SIZE``
     and ``RANK``, as ``torchrun`` exports them; the group is set up over
     ``tcp://``.  The rank's device, which an unindexed ``"cuda"`` names
-    from then on (:data:`~pywindow_torch.parallel.mesh.LOCAL_DEVICES`):
+    from then on (:data:`~pywindow_torch.parallel.mesh.LOCAL_DEVICE`):
     with a card ``cuda:{LOCAL_RANK % device_count}`` (``LOCAL_RANK``
     defaults to the rank), without one the CPU.
     ``backend`` defaults to ``"nccl"`` on a card and ``"gloo"`` on the
@@ -98,7 +100,7 @@ def initialize(
         timeout=TIMEOUT,
     )
     if dev.type == "cuda":
-        mesh.LOCAL_DEVICES[:] = [dev]
+        mesh.LOCAL_DEVICE = dev
 
     # ranks that share a device split its memory budget (mesh.ranks_on)
     store = dist.distributed_c10d._get_default_store()
@@ -125,13 +127,13 @@ def _store_barrier(tag: str) -> None:
     store.wait([f"{key}/open"], TIMEOUT)
 
 
-def _build_barrier(tag: str, devices: list[torch.device]) -> None:
-    """Build and load what the sweep runs (the CUDA kernels where a
+def _build_barrier(tag: str, device: torch.device) -> None:
+    """Build and load what the sweep runs (the CUDA kernels where the
     device is a card, the native library and the dict converter), then
     meet every rank at a store barrier: the first collective after it
     finds no rank still building (counterpart of ``_compile_barrier``,
     distributed.py:62-81)."""
-    if any(d.type == "cuda" for d in devices):
+    if device.type == "cuda":
         from pywindow_torch.ops import _cuda
 
         _cuda.load_extension()
@@ -201,7 +203,7 @@ def _rows_to_dicts(rows: np.ndarray, cfg: AnalysisConfig, redone: dict) -> list[
     replaced by its re-runs' dicts."""
     out = to_properties_dicts_bulk(rows, cfg.max_windows)
     for props in out:
-        for key in ("_open_cap_overflow", "_opt_budget_exceeded", "_window_cap_saturated"):
+        for key in ESCALATION_MARKERS.values():
             props.pop(key, None)
     for pos, props in redone.items():
         out[pos] = props
@@ -224,13 +226,12 @@ def analysis_batched_distributed(
     process group (counterpart of
     ``pywindow_tpu.parallel.distributed.analysis_batched_distributed``).
 
-    Each rank decodes and analyses its own frame shard on ``device``
-    (an unindexed ``"cuda"`` is the rank's card, see
-    :func:`initialize` and
-    :func:`~pywindow_torch.parallel.mesh.shard_devices`; the card unless
-    the caller asks for the CPU),
-    in chunks of ``batch_size`` frames (default: the largest
-    memory-safe chunk); results for ALL frames land in
+    Each rank decodes and analyses its own frame shard on its one
+    ``device`` (:func:`~pywindow_torch.parallel.mesh.frame_device`: an
+    unindexed ``"cuda"`` is the rank's card, see :func:`initialize`; the
+    card unless the caller asks for the CPU), in chunks of
+    ``batch_size`` frames (default: the largest memory-safe chunk);
+    results for ALL frames land in
     ``traj.analysis_output`` on EVERY rank, with the schema of
     ``analysis_batched``.  The sampling pin is the maximum diameter over
     all ranks' frames unless ``reference_max_diameter`` is given, and
@@ -239,7 +240,7 @@ def analysis_batched_distributed(
     must hold the same ``analysis_output`` on entry.  Returns the pin
     and the sizes, or None when there was nothing to do.
     """
-    devices = frame_devices(device)
+    device = frame_device(device)
     world, rank = (dist.get_world_size(), dist.get_rank()) if _in_group() else (1, 0)
 
     todo = traj._resolve_frames(frames)
@@ -253,10 +254,10 @@ def analysis_batched_distributed(
     with stage("trajectory_decode"):
         elements, coords = _decode_shard(traj, mine, swap_atoms, forcefield)
     with stage("sweep_max_diameters"):
-        maxd = batch.frame_max_diameters(elements, coords, devices)
-    _build_barrier("sweep", devices)
+        maxd = batch.frame_max_diameters(elements, coords, device)
+    _build_barrier("sweep", device)
     with stage("rank_pin"):
-        global_max = _max_over_ranks(float(maxd.max()), devices[0])
+        global_max = _max_over_ranks(float(maxd.max()), device)
     ref = global_max if reference_max_diameter is None else float(reference_max_diameter)
     sizes = batch_sizes(ref, global_max, cfg)
 
@@ -283,7 +284,7 @@ def analysis_batched_distributed(
         for positions, rows in chunks:
             block[positions] = rows
         with stage("sweep_gather"):
-            parts, extra = _gather_rows(block, redone, devices[0])
+            parts, extra = _gather_rows(block, redone, device)
             finals = [
                 results if r == rank else _rows_to_dicts(parts[r], cfg, extra[r])
                 for r in range(world)

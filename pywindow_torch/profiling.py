@@ -29,8 +29,7 @@ registered with the garbage collector.  On:
   events on the card, read when the caller settles the span after it
   has waited for the work anyway (the sweep's collector does, after the
   chunk's fetch), so the timer adds no synchronisation; a host span on
-  the CPU.  A chunk sharded over several devices books one span, its
-  busiest device's (:func:`settle_shards`);
+  the CPU;
 * a sweep's re-runs of escalated frames are ``sweep_rerun`` spans
   whose id ``reason`` is the marker (``open_overflow``, ``budget``,
   ``window_sat``), inside ``sweep_retry``;
@@ -270,10 +269,9 @@ def _hook_gc(on: bool) -> None:
 class _DeviceSpan:
     """One :func:`device_stage` span; :meth:`settle` books it."""
 
-    def __init__(self, name: str, cuda: bool, book: bool) -> None:
+    def __init__(self, name: str, cuda: bool) -> None:
         self.name = name
         self.cuda = cuda
-        self.book = book
         self.seconds: float | None = None
 
     def __enter__(self) -> _DeviceSpan:
@@ -290,46 +288,26 @@ class _DeviceSpan:
             self.end.record()
         else:
             self.seconds = time.perf_counter() - self.t0
-            if self.book:
-                METRICS.add_stage(self.name, self.seconds)
+            METRICS.add_stage(self.name, self.seconds)
 
     def settle(self) -> float:
-        """The span's device time, booked unless the span was opened with
-        ``book=False`` (waits for its end event; call it where the work
-        has been waited for already)."""
+        """The span's device time, booked on the card here (waits for its
+        end event; call it where the work has been waited for already)."""
         if self.cuda and self.seconds is None:
             self.end.synchronize()
             self.seconds = self.start.elapsed_time(self.end) * 1e-3
-            if self.book:
-                METRICS.add_stage(self.name, self.seconds)
+            METRICS.add_stage(self.name, self.seconds)
         return self.seconds
 
 
-def device_stage(name: str | None, device: torch.device, book: bool = True):
+def device_stage(name: str | None, device: torch.device):
     """A context manager timing the device work enqueued inside it, on
-    the current CUDA stream (a host span on the CPU); its ``settle()``
-    books the time into :data:`METRICS` (with ``book=False`` it only
-    returns it, for :func:`settle_shards`).  The shared no-op unless
-    profiling is on, or without a name."""
+    the current CUDA stream (a host span on the CPU, booked on exit);
+    on the card its ``settle()`` books the time into :data:`METRICS`.
+    The shared no-op unless profiling is on, or without a name."""
     if not _ENABLED or name is None:
         return _OFF
-    return _DeviceSpan(name, torch.device(device).type == "cuda", book)
-
-
-def settle_shards(name: str, shards) -> None:
-    """Book one chunk's device time as one ``name`` span from its
-    shards' ``(device, span)`` pairs (spans opened with ``book=False``):
-    the shards of one device run one after another and the devices at
-    once, so the chunk took its busiest device's sum.  With one shard
-    this is that shard's span."""
-    per_device: dict = {}
-    for dev, span in shards:
-        seconds = span.settle()
-        if seconds is None:
-            return  # opened with profiling off
-        per_device[dev] = per_device.get(dev, 0.0) + seconds
-    if per_device:
-        METRICS.add_stage(name, max(per_device.values()))
+    return _DeviceSpan(name, torch.device(device).type == "cuda")
 
 
 def _every_thread() -> dict:

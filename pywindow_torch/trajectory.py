@@ -57,7 +57,7 @@ from pywindow_torch.ops.cell import (
 )
 from pywindow_torch.ops.encoding import round_up
 from pywindow_torch.parallel import batch
-from pywindow_torch.parallel.mesh import DeviceSpec, frame_devices
+from pywindow_torch.parallel.mesh import DeviceSpec, frame_device
 from pywindow_torch.profiling import stage
 
 #: frames per chunk on the generic path (bounds decoded-frame memory)
@@ -356,9 +356,10 @@ class Trajectory:
         exact_sizes: bool = False,
         device: DeviceSpec | None = None,
     ) -> None:
-        """Analyse frames as device batches on ``device`` (every local
-        card unless the caller asks for others or the CPU; see
-        :func:`~pywindow_torch.parallel.mesh.frame_devices`); results
+        """Analyse frames as device batches on ``device``, the process's
+        one device (:func:`~pywindow_torch.parallel.mesh.frame_device`:
+        the card unless the caller asks for the CPU; several cards run
+        as ranks, :mod:`pywindow_torch.parallel.distributed`); results
         land in :attr:`analysis_output` with the schema of
         :meth:`analysis`.
 
@@ -375,7 +376,7 @@ class Trajectory:
         :meth:`save_analysis` writes every ``autosave_every`` chunks and
         at the end; :meth:`load_analysis` and a rerun resume from it.
         """
-        frame_devices(device)  # raises before any work when no card is there
+        frame_device(device)  # raises before any work
         todo = self._resolve_frames(frames)
         if not override:
             todo = [f for f in todo if f not in self.analysis_output]

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from pywindow_torch import tables
-from pywindow_torch.config import DEFAULT_CONFIG, resolve_device
+from pywindow_torch.config import DEFAULT_CONFIG, escalate, resolve_device
 from pywindow_torch.io.forcefield import (  # noqa: F401 (public re-exports)
     decipher_atom_key,
     dlf_notation,
@@ -179,10 +179,10 @@ def find_windows(
             centre = geometry.center_of_mass(mol)
         res = _find_windows(mol, n_win, l1, l2, cfg, pore_centre=centre)
         if bool(res.open_overflow[0]):
-            cfg = dataclasses.replace(cfg, open_cap_frac=2.0 * cfg.open_cap_frac)
+            cfg = escalate(cfg, "open_overflow")
             continue
-        if bool((res.opt_capped | pore_capped)[0]) and cfg.fast_budgets:
-            cfg = dataclasses.replace(cfg, fast_budgets=False)
+        if bool((res.opt_capped | pore_capped)[0]) and (full := escalate(cfg, "budget")):
+            cfg = full
             continue
         break
     if not bool(res.any_open[0]):
@@ -689,8 +689,8 @@ def window_analysis(
         return None
     while True:
         diameter, centre, capped = _window_refine(mol, v, refined.dist, refined.ok, cfg)
-        if bool(capped[0, 0]) and cfg.fast_budgets:
-            cfg = dataclasses.replace(cfg, fast_budgets=False)
+        if bool(capped[0, 0]) and (full := escalate(cfg, "budget")):
+            cfg = full
             continue
         break
     return float(diameter[0, 0]), centre[0, 0].cpu().numpy()

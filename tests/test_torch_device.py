@@ -36,7 +36,7 @@ ENTRY_POINTS = {
     "Molecule.calculate_pore_diameter": lambda: _molecule().calculate_pore_diameter(),
     "analysis.analyze": lambda: analysis.analyze(*load_structure("YAQHOQ")),
     "batch.analyze_batch": lambda: batch.analyze_batch([load_structure("YAQHOQ")]),
-    "mesh.frame_devices": lambda: mesh.frame_devices(),
+    "mesh.frame_device": lambda: mesh.frame_device(),
     "utilities.max_dim": lambda: utilities.max_dim(*load_structure("YAQHOQ")),
     "XYZ.analysis_batched": lambda: pt.XYZ(DATA / "YAQHOQ.xyz").analysis_batched(),
 }
@@ -100,7 +100,7 @@ def test_explicit_device_overrides_the_variable(monkeypatch):
     with pytest.raises(RuntimeError, match=NO_CARD):
         _molecule().full_analysis(device="cuda")
     with pytest.raises(RuntimeError, match=NO_CARD):
-        batch.analyze_batch([load_structure("YAQHOQ")], device=["cuda:0"])
+        batch.analyze_batch([load_structure("YAQHOQ")], device="cuda:0")
 
 
 def test_variable_does_not_outlive_the_test():

@@ -954,37 +954,6 @@ def _assert_props_identical(got: dict, ref: dict) -> None:
                 np.testing.assert_array_equal(a, b, err_msg=name)
 
 
-def test_two_shards_on_one_card_equal_one_shard(cuda):
-    """analyze_batch of 5 frames and sweep_uniform of 22 frames in chunks
-    of 4 (the last of 2) over two shards on cuda:0 equal the one-device
-    runs bit for bit."""
-    from pywindow_torch.ops.analysis import max_dim_host
-    from pywindow_torch.parallel import batch
-
-    fr = pt.DLPOLY(DATA / "HISTORY_singlemol_short").get_frames(
-        list(range(20)), swap_atoms={"he": "H"}, forcefield="OPLS"
-    )
-    elements = np.asarray(fr[0].system["elements"])
-    coords = np.stack([fr[k % 20].system["coordinates"] for k in range(22)])
-    two = ["cuda:0", "cuda:0"]
-    systems = [(elements, c) for c in coords[:5]]
-    for got, ref in zip(batch.analyze_batch(systems, device=two), batch.analyze_batch(systems, device="cuda:0")):
-        _assert_props_identical(got, ref)
-    maxd = np.array([max_dim_host(elements, c) for c in coords])
-    runs = []
-    for device in (two, "cuda:0"):
-        got: dict = {}
-        batch.LEARNED_CAPS._caps.clear()
-        batch.sweep_uniform(
-            elements, coords, maxd, lambda pos, res, got=got: got.update(zip(pos.tolist(), res)),
-            batch_size=4, device=device,
-        )
-        runs.append(got)
-    assert sorted(runs[0]) == sorted(runs[1]) == list(range(22))
-    for f in runs[1]:
-        _assert_props_identical(runs[0][f], runs[1][f])
-
-
 _RANK_WORKER = r"""
 import pickle, sys
 import torch

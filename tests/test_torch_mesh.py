@@ -1,37 +1,26 @@
-"""The frame mesh of pywindow_torch (``parallel/mesh.py``) and batches
-sharded over several devices, on the CPU.
+"""The device of pywindow_torch's batch layer (``parallel/mesh.py``), on
+the CPU.
 
-- ``pad_batch_to_devices``, ``shard_bounds`` and ``host_device_grid``
-  against the JAX package's mesh on the conftest's 8 virtual devices
-  (exact: integers).
-- ``frame_devices``: the CPU, lists, and no card.
-- The memory budget split between the shards and the ranks on a device.
-- ``analyze_batch`` and ``sweep_uniform`` over several CPU "devices"
-  (shards with padding, a shard that is all padding) against one
-  device: every value equal, bit for bit; ``analyze_batch`` against the
-  JAX package's, which shards over the 8 virtual devices, at 1e-8 Å
-  where no optimiser runs and 1e-4 Å for optimised values (the
-  tolerances of tests/test_torch_batch.py, on its JAX-parity frames).
+- ``frame_device``: the CPU, an unindexed ``"cuda"`` (the rank's card,
+  else ``cuda:0``), a named card, no card, and lists refused.
+- The memory budget split between the ranks on a device.
+- Every entry point that takes ``device`` refuses a list or tuple with
+  a ``ValueError`` that names ``parallel.distributed``, before any work:
+  one process runs on one device, several cards run as ranks.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 import pywindow_torch as pt
-from pywindow_torch.parallel import batch, mesh
-from pywindow_tpu.parallel import batch as jbatch
-from pywindow_tpu.parallel import mesh as jmesh
-from tests.conftest import DATA
-from tests.test_torch_batch import _assert_props_close
-from tests.test_torch_stream import _assert_identical
+from pywindow_torch.ops import analysis
+from pywindow_torch.parallel import batch, distributed, mesh
+from pywindow_torch.trajectory import Trajectory
+from tests.conftest import DATA, load_structure
 
 HISTORY = DATA / "HISTORY_singlemol_short"
 FF = {"swap_atoms": {"he": "H"}, "forcefield": "OPLS"}
-#: frames on which both packages' float64 drivers stop at the same kink
-#: (tests/test_torch_batch.py)
-PARITY_FRAMES = [2, 4, 10, 15, 19]
 
 
 def _frames(idx):
@@ -39,69 +28,34 @@ def _frames(idx):
     return [(np.asarray(m.system["elements"]), m.system["coordinates"]) for m in fr.values()]
 
 
-@pytest.mark.parametrize("n_dev", [1, 2, 3, 4, 7, 8])
-def test_pad_batch_to_devices_matches_jax(n_dev):
-    for n in range(0, 40):
-        assert mesh.pad_batch_to_devices(n, n_dev) == jmesh.pad_batch_to_devices(n, n_dev)
-
-
-@pytest.mark.parametrize("b_pad", [8, 16, 24, 1440])
-def test_shard_bounds_match_the_jax_frames_sharding(b_pad):
-    """The (lo, hi) of each device's shard equal the index ranges of the
-    addressable shards of a frames-sharded array, in mesh order."""
-    fmesh = jmesh.frame_mesh()
-    assert fmesh.devices.size == 8
-    arr = jax.device_put(np.arange(b_pad), jmesh.batch_sharding(fmesh))
-    by_device = {s.device.id: s.index[0] for s in arr.addressable_shards}
-    ref = [(by_device[d.id].start, by_device[d.id].stop) for d in fmesh.devices.flat]
-    assert mesh.shard_bounds(b_pad, 8) == ref
-
-
-def test_shard_bounds_refuse_an_uneven_batch():
-    with pytest.raises(ValueError, match="evenly"):
-        mesh.shard_bounds(10, 4)
-
-
-@pytest.mark.parametrize("n_hosts", [1, 2, 3, 4, 8])
-def test_host_device_grid_matches_host_device_mesh(n_hosts):
-    """Row h of the grid holds the devices of host h, as the JAX mesh's
-    ('hosts', 'frames') axes (devices compared by id; 3 hosts drop the
-    devices that do not fill a row)."""
-    jgrid = jmesh.host_device_mesh(n_hosts=n_hosts).devices
-    ids = [d.id for d in jax.devices()]
-    assert mesh.host_device_grid(ids, n_hosts=n_hosts) == [[d.id for d in row] for row in jgrid]
-
-
-def test_host_device_grid_defaults_to_one_host():
-    assert mesh.host_device_grid(["a", "b", "c"]) == [["a", "b", "c"]]
-
-
 def test_frame_devices_on_the_cpu_and_lists():
+    """The CPU is the CPU; a list or tuple, of any length, is refused."""
     cpu = torch.device("cpu")
-    assert mesh.frame_devices("cpu") == [cpu]
-    assert mesh.frame_devices(cpu) == [cpu]
-    assert mesh.frame_devices(["cpu", cpu, "cpu"]) == [cpu, cpu, cpu]
-    assert mesh.frame_devices(("cpu",)) == [cpu]
-    with pytest.raises(ValueError, match="empty"):
-        mesh.frame_devices([])
+    assert mesh.frame_device("cpu") == cpu
+    assert mesh.frame_device(cpu) == cpu
+    for device in (["cpu", cpu, "cpu"], ("cpu",), []):
+        with pytest.raises(ValueError, match="one process runs on one device"):
+            mesh.frame_device(device)
 
 
 def test_frame_devices_refuse_mixed_types(monkeypatch):
-    """A batch shards over devices of one type (a card is faked present:
-    nothing runs on it)."""
+    """A list is refused whatever it holds, cards of one type or of two
+    (a card is faked present: nothing runs on it); a named card is that
+    card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert mesh.frame_devices(["cuda:0", "cuda:1"]) == [torch.device("cuda", 0), torch.device("cuda", 1)]
-    with pytest.raises(ValueError, match="one device type"):
-        mesh.frame_devices(["cpu", "cuda:0"])
+    assert mesh.frame_device("cuda:1") == torch.device("cuda", 1)
+    for device in (["cuda:0", "cuda:1"], ["cpu", "cuda:0"]):
+        with pytest.raises(ValueError, match="parallel.distributed"):
+            mesh.frame_device(device)
 
 
-@pytest.mark.parametrize("device", ["cuda", "cuda:1", torch.device("cuda"), ["cpu", "cuda:0"]])
+@pytest.mark.parametrize("device", ["cuda", "cuda:1", torch.device("cuda"), "cuda:0"])
 def test_frame_devices_raise_without_a_card(monkeypatch, device):
     """No fallback to the CPU: asking for a card that is not there
     raises, in the batch entry points too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mesh.frame_devices(device)
+        mesh.frame_device(device)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch.analyze_batch(_frames([2]), device=device)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -109,9 +63,8 @@ def test_frame_devices_raise_without_a_card(monkeypatch, device):
 
 
 def test_budget_splits_between_shards_and_ranks(monkeypatch):
-    """A device's budget is split between the shards it runs and the
-    ranks of the process group on it; the batch is a shard's frames
-    times the shard count."""
+    """A device's budget is split between the ranks of the process group
+    that run on it."""
     elements, coords = _frames([2])[0]
     maxd = 23.2
     budget = 10**9
@@ -121,58 +74,12 @@ def test_budget_splits_between_shards_and_ranks(monkeypatch):
 
     half, quarter = safe("cpu", budget // 2), safe("cpu", budget // 4)
     assert 1 < quarter < half < safe("cpu")
-    assert safe(["cpu", "cpu"]) == 2 * half
-    assert safe(["cpu"] * 4) == 4 * quarter
     assert mesh.ranks_on(torch.device("cpu")) == 1
     monkeypatch.setitem(mesh.RANKS_ON, mesh.device_key(torch.device("cpu")), 2)
     assert mesh.ranks_on(torch.device("cpu")) == 2
     assert safe("cpu") == half
-    assert safe(["cpu", "cpu"]) == 2 * quarter
-
-
-def test_analyze_batch_over_three_devices():
-    """Five frames over three CPU devices (padded to six, shards of two)
-    equal the single-device call bit for bit, and the JAX package's
-    analyze_batch over its 8 virtual devices within 1e-8 / 1e-4 Å."""
-    systems = _frames(PARITY_FRAMES)
-    sharded = batch.analyze_batch(systems, device=["cpu"] * 3)
-    single = batch.analyze_batch(systems, device="cpu")
-    ref = jbatch.analyze_batch(systems)
-    assert len(sharded) == len(single) == len(ref) == 5
-    for s, o, r in zip(sharded, single, ref):
-        _assert_identical(s, o)
-        _assert_props_close(s, r)
-
-
-@pytest.mark.parametrize(("n_dev", "chunk"), [(2, 3), (3, 3)])
-def test_sweep_uniform_over_devices_equals_one_device(n_dev, chunk):
-    """Four frames in chunks of three over two or three CPU devices
-    (each chunk padded with its first frame; over three devices the
-    one-frame last chunk leaves two shards all padding) equal the
-    single-device sweep bit for bit, delivered in frame order."""
-    systems = _frames([2, 4, 10, 15])
-    elements = systems[0][0]
-    coords = np.stack([c for _, c in systems])
-    maxd = batch.frame_max_diameters(elements, coords, "cpu")
-
-    def run(device):
-        got: dict = {}
-        order: list = []
-
-        def on_batch(pos, res):
-            order.extend(pos.tolist())
-            got.update(zip(pos.tolist(), res))
-
-        batch.LEARNED_CAPS._caps.clear()
-        batch.sweep_uniform(elements, coords, maxd, on_batch, batch_size=chunk, device=device)
-        return got, order
-
-    sharded, order = run(["cpu"] * n_dev)
-    single, _ = run("cpu")
-    assert order == [0, 1, 2, 3]
-    assert sorted(sharded) == sorted(single) == [0, 1, 2, 3]
-    for f in single:
-        _assert_identical(sharded[f], single[f])
+    monkeypatch.setitem(mesh.RANKS_ON, mesh.device_key(torch.device("cpu")), 4)
+    assert safe("cpu") == quarter
 
 
 def _fake_cards(monkeypatch, n: int) -> None:
@@ -183,28 +90,23 @@ def _fake_cards(monkeypatch, n: int) -> None:
 
 
 def test_unindexed_cuda_shards_on_one_card(monkeypatch):
-    """On four cards an unindexed "cuda" runs a batch on the first card
-    (or a rank's first own card); a named card or a list is taken as
-    given."""
+    """On four cards an unindexed "cuda" is the first card, or a rank's
+    own card once ``distributed.initialize`` has set it; a named card is
+    that card."""
     _fake_cards(monkeypatch, 4)
     cards = [torch.device("cuda", i) for i in range(4)]
-    assert mesh.frame_devices("cuda") == cards
-    assert mesh.shard_devices("cuda") == [cards[0]]
-    assert mesh.shard_devices(torch.device("cuda")) == [cards[0]]
-    assert mesh.shard_devices("cuda:2") == [cards[2]]
-    assert mesh.shard_devices([f"cuda:{i}" for i in range(4)]) == cards
-    assert mesh.shard_devices(["cuda:0", "cuda:0"]) == [cards[0], cards[0]]
-    assert mesh.shard_devices(["cpu"] * 3) == [torch.device("cpu")] * 3
-    assert mesh.shard_devices("cpu") == [torch.device("cpu")]
-    own = [cards[1], cards[3]]
-    monkeypatch.setattr(mesh, "LOCAL_DEVICES", own)
-    assert mesh.frame_devices("cuda") == own
-    assert mesh.shard_devices("cuda") == [cards[1]]
+    assert mesh.frame_device("cuda") == cards[0]
+    assert mesh.frame_device(torch.device("cuda")) == cards[0]
+    assert mesh.frame_device("cuda:2") == cards[2]
+    assert mesh.frame_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(mesh, "LOCAL_DEVICE", cards[1])
+    assert mesh.frame_device("cuda") == cards[1]
+    assert mesh.frame_device("cuda:3") == cards[3]
 
 
 def test_budget_plans_the_default_on_one_card(monkeypatch):
-    """An unindexed "cuda" over four cards plans one card's batch; a
-    list of the four plans four shards of one card's batch each."""
+    """An unindexed "cuda" over four cards plans one card's batch, as
+    a named card does, and as the rank's own card does."""
     _fake_cards(monkeypatch, 4)
     elements, _ = _frames([2])[0]
 
@@ -212,26 +114,68 @@ def test_budget_plans_the_default_on_one_card(monkeypatch):
         return batch.max_safe_batch(len(elements), 23.2, device=device, budget=10**9)
 
     assert safe("cuda") == safe("cuda:0") == safe("cuda:3") > 1
-    assert safe([f"cuda:{i}" for i in range(4)]) == 4 * safe("cuda:0")
+    monkeypatch.setattr(mesh, "LOCAL_DEVICE", torch.device("cuda", 2))
+    assert safe("cuda") == safe("cuda:2")
 
 
-class _Span:
-    def __init__(self, seconds):
-        self.seconds = seconds
-
-    def settle(self):
-        return self.seconds
+def _system():
+    system = pt.MolecularSystem.load_file(DATA / "YAQHOQ.xyz")
+    system.make_modular()
+    return system
 
 
-def test_settle_shards_books_the_busiest_device(monkeypatch):
-    """One span a chunk: the shards of one device add up, the devices
-    run at once; spans opened with profiling off book nothing."""
-    from pywindow_torch import profiling
+def _sweep_stream(device):
+    elements, coords = load_structure("YAQHOQ")
 
-    booked: list = []
-    monkeypatch.setattr(profiling.METRICS, "add_stage", lambda name, s: booked.append((name, s)))
-    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
-    profiling.settle_shards("sweep_step", [(a, _Span(0.25)), (a, _Span(0.5)), (b, _Span(0.625))])
-    profiling.settle_shards("sweep_step", [(a, _Span(0.125))])
-    profiling.settle_shards("sweep_step", [(a, _Span(None)), (b, _Span(None))])
-    assert booked == [("sweep_step", 0.75), ("sweep_step", 0.125)]
+    def decode_slab(lo, hi, out64=None, out32=None):
+        raise AssertionError("a frame was decoded")
+
+    batch.sweep_stream(elements, 1, decode_slab, lambda pos, res: None, device=device)
+
+
+def _sweep_uniform(device):
+    elements, coords = load_structure("YAQHOQ")
+    batch.sweep_uniform(
+        elements, coords[None], np.array([23.2]), lambda pos, res: None, device=device
+    )
+
+
+#: every public entry point that takes ``device``, called with it
+LIST_ENTRY_POINTS = {
+    "mesh.frame_device": mesh.frame_device,
+    "batch.max_safe_batch": lambda d: batch.max_safe_batch(168, 23.2, device=d),
+    "batch.frame_max_diameters": lambda d: batch.frame_max_diameters(
+        load_structure("YAQHOQ")[0], load_structure("YAQHOQ")[1][None], d
+    ),
+    "batch.dispatch_batch": lambda d: batch.dispatch_batch([load_structure("YAQHOQ")], device=d),
+    "batch.analyze_batch": lambda d: batch.analyze_batch([load_structure("YAQHOQ")], device=d),
+    "batch.sweep_uniform": _sweep_uniform,
+    "batch.sweep_stream": _sweep_stream,
+    "Trajectory.analysis_batched": lambda d: pt.DLPOLY(HISTORY).analysis_batched(
+        frames=[2], device=d, **FF
+    ),
+    "MolecularSystem.analyze_molecules": lambda d: _system().analyze_molecules(device=d),
+    "distributed.analysis_batched_distributed": lambda d: distributed.analysis_batched_distributed(
+        pt.DLPOLY(HISTORY), frames=[2], device=d, **FF
+    ),
+}
+
+
+def _no_work(*args, **kwargs):
+    raise AssertionError("work started before the device was checked")
+
+
+@pytest.mark.parametrize("device", [["cpu"], ("cpu", "cpu")], ids=["list_of_one", "tuple_of_two"])
+@pytest.mark.parametrize("name", LIST_ENTRY_POINTS)
+def test_a_device_list_is_refused_before_any_work(monkeypatch, name, device):
+    """One process runs on one device: a list or tuple raises a
+    ``ValueError`` naming ``parallel.distributed`` (how several cards
+    run), before any frame is resolved, decoded, encoded or analysed."""
+    for owner, attr in (
+        (analysis, "run_pipeline"), (batch, "encode_batch"), (batch, "encode_host"),
+        (batch, "pairwise_distances"), (batch, "static_sizes"), (batch, "max_dim_bound"),
+        (Trajectory, "_resolve_frames"), (Trajectory, "_decode_uniform"),
+    ):
+        monkeypatch.setattr(owner, attr, _no_work)
+    with pytest.raises(ValueError, match=r"one process runs on one device.*parallel\.distributed"):
+        LIST_ENTRY_POINTS[name](device)

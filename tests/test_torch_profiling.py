@@ -95,9 +95,10 @@ def test_sweep_stages_when_on(profiling_on):
 
 
 def test_sharded_sweep_books_one_device_span_a_chunk(profiling_on):
-    """Two frames in one chunk over two shards: the shards' enqueues are
-    timed each, the chunk's device time is one span (the shards on one
-    device add up), as the generic path's batch is."""
+    """Two frames in one chunk on one device: the chunk's enqueue is one
+    ``sweep_dispatch`` span and its device time one ``sweep_step`` span,
+    as the generic path's batch is (``dispatch_batch`` with a span, booked
+    by its collect)."""
     el, co = load_xyz(DATA / "YAQHOQ.xyz")
     coords = np.stack([co, co + 0.01])
 
@@ -105,12 +106,12 @@ def test_sharded_sweep_books_one_device_span_a_chunk(profiling_on):
         (out64 if out64 is not None else out32)[...] = coords[lo:hi]
         return np.full(hi - lo, 10.6)
 
-    batch.sweep_stream(el, 2, decode_slab, lambda pos, res: None, batch_size=2, device=["cpu", "cpu"])
+    batch.sweep_stream(el, 2, decode_slab, lambda pos, res: None, batch_size=2, device="cpu")
     calls = METRICS.snapshot()["stage_calls"]
-    assert calls["sweep_dispatch"] == 2
+    assert calls["sweep_dispatch"] == 1
     assert calls["sweep_step"] == 1
     METRICS.reset()
-    handle = batch.dispatch_batch([(el, c) for c in coords], device=["cpu", "cpu"], span="sweep_step")
+    handle = batch.dispatch_batch([(el, c) for c in coords], device="cpu", span="sweep_step")
     batch.collect_batch(handle)
     assert METRICS.snapshot()["stage_calls"]["sweep_step"] == 1
 
