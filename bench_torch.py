@@ -25,7 +25,7 @@ float32 pipeline.  Inputs come from ``tests/data`` only.  Rows:
 4. end-to-end frames/s of a 4,800-frame MIBQAR HISTORY,
    ``analysis_batched(forcefield="DLF", batch_size=1200)``, after two
    untimed sweeps (the first learns the escalated caps);
-5. on the card, on row 1's batch: each of the six pipeline kernels'
+5. on the card, on row 1's batch: each of the seven pipeline kernels'
    launches in one pipeline call, device ms through a CUDA graph
    (``chip_smoke.device_ms``) and bound ms (``chip_smoke.bound``), and the
    pipeline call's device-busy time against its wall time

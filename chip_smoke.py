@@ -7,7 +7,7 @@ result line):
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions, float32 matmuls in full precision;
-2. build the seven CUDA kernels from ``pywindow_torch/csrc`` (one
+2. build the eight CUDA kernels from ``pywindow_torch/csrc`` (one
    ninja build, the sources compiled in parallel) and the native host
    library from ``pywindow_torch/_native`` (``g++``);
 3. each kernel against its plain PyTorch version on the card, on the
@@ -48,7 +48,12 @@ result line):
    ``torch.cdist`` + ``amin`` beside them, the pairs each probe's own
    exact test keeps and the bound over them beside the every-pair
    bound, the tile pairs and pairs its warps visit and the sort's bytes
-   (the design's work), and the instruction floors;
+   (the design's work), and the instruction floors.  ``max_dim`` (the
+   atoms form and the value form) is held to the bit, atoms included, in
+   both dtypes on every recorded call and on two sweep chunks built here,
+   CC3 (4,320 x 168) and MIBQAR (1,200 x 424), timed on those too; then
+   the device pipeline runs each of the two chunks through the kernel and
+   through the plain all-pairs passes: packed rows equal bit for bit;
 4. the 7-system golden gate through
    ``MolecularSystem.load_file(...).system_to_molecule().full_analysis()``
    (the card is the default device; float32 pipeline, float64 optimiser
@@ -102,8 +107,8 @@ result line):
    objectives on the card equal to ``pore_diameter``;
    ``calculate_shape_descriptors`` against the numpy ones, the command
    line's ``analyze`` and ``trajectory`` in subprocesses, each
-   launching the six pipeline kernels, and one molecule under
-   ``profiling.trace`` (the six pipeline kernels in the trace); then,
+   launching the seven pipeline kernels, and one molecule under
+   ``profiling.trace`` (the seven pipeline kernels in the trace); then,
    off the main paths,
    ``dbscan_spiral`` on a sweep chunk's whole-spiral ray endpoints,
    timed beside the dbscan kernel on the same points;
@@ -116,7 +121,7 @@ result line):
    (``python3 chip_smoke.py --rank-worker ...``, :func:`rank_worker`)
    with its own timeout, through
    ``parallel.distributed.analysis_batched_distributed``: each rank
-   decodes only its own shard, launches all six pipeline kernels,
+   decodes only its own shard, launches all seven pipeline kernels,
    loads no JAX and holds all 4,320 frames; (e) with more than one
    card, one NCCL rank a card.
    Every leg equals (a)'s ``cuda:0`` run bit for bit on every value of
@@ -125,9 +130,9 @@ result line):
 13. the port's benchmark, ``python -m pywindow_torch bench``, in a
    subprocess at full size after phase 12 (``bench_torch.py``: its own
    golden gate, CC3 kernel and end-to-end frames/s, MIBQAR and REYMAL,
-   the six pipeline kernels' device ms on its CC3 batch): exit code 0,
+   the seven pipeline kernels' device ms on its CC3 batch): exit code 0,
    the headline line last and under 1,000 bytes, the gate passed and
-   all six pipeline kernels launched; its rates and headline printed;
+   all seven pipeline kernels launched; its rates and headline printed;
 14. the walkthroughs and the validation suites, after phase 11: the
    eight ``docs/walkthroughs`` executed against ``pywindow_torch`` on the
    default device, the card (each file's python blocks in one namespace
@@ -136,7 +141,7 @@ result line):
    ``io.inputs.rdkit_like_mol`` when rdkit is not installed, 05 without
    its forcefield-names aside, 08 on a two-frame periodic trajectory),
    each against its goldens within 0.01 Å, its seconds, worst error and
-   own launches printed (all six pipeline kernels, ``ray_exit`` for 03);
+   own launches printed (all seven pipeline kernels, ``ray_exit`` for 03);
    the reference's validation suites, ``calculate_windows`` of five
    cages (0.01 Å, case_5 0.05 Å, centres matched order-insensitively)
    and ``calculate_average_diameter`` of five molecules (0.01 Å), each
@@ -151,7 +156,7 @@ result line):
 
 Phases 4-6, 8, 9, 10, 11, 14 and 12's first ``"cuda"`` run are the main paths: before each the kernel
 launch counters are set to 0 and after it every kernel of the path must
-have launched (all six pipeline kernels; ``clearance_min`` and its three
+have launched (all seven pipeline kernels; ``clearance_min`` and its three
 helper passes on its grid);
 every call of the device pipeline must launch each kernel as often as
 every other (the count does not depend on the batch size), and no plain
@@ -264,6 +269,10 @@ KERNELS = {
     "nm_xy": ("pywindow_torch/csrc/nm_xy.cu", "pywindow_tpu/ops/nm_pallas.py:283"),
     "fine_path": ("pywindow_torch/csrc/fine_path.cu", "pywindow_tpu/ops/pallas_kernels.py:799"),
     "clearance_min": ("pywindow_torch/csrc/clearance_min.cu", "pywindow_tpu/ops/pallas_kernels.py:43"),
+    "max_dim": (
+        "pywindow_torch/csrc/max_dim.cu",
+        "none: pywindow_tpu/ops/geometry.py:169 max_dim and :194 max_dim_value, jnp left to XLA",
+    ),
 }
 #: the kernels of the analysis pipeline (clearance_min has no caller)
 PIPELINE_KERNELS = tuple(k for k in KERNELS if k != "clearance_min")
@@ -306,6 +315,11 @@ DBSCAN_BOX_OPS = 18
 #: compare and a select, then three squares, two sums and the compare
 #: with the skip threshold (the seed search's tests counted alike)
 CLEARANCE_BOX_OPS = 18
+#: max_dim's operations per unordered valid pair: three differences, three
+#: squares, two sums, the square root, the two vdW sums and the compare;
+#: the value form two sums and a compare more (both orders of the pair)
+MAX_DIM_PAIR_OPS = 12
+MAX_DIM_VALUE_PAIR_OPS = 15
 
 
 def structure(name: str) -> pathlib.Path:
@@ -379,6 +393,7 @@ def wrappers():
         cluster_kernels,
         lbfgsb_kernels,
         nm_kernels,
+        pair_kernels,
         ray_kernels,
     )
 
@@ -399,6 +414,7 @@ def wrappers():
         (ray_kernels, "fine_path_cuda", "fine_path", ray_kernels.fine_path_plain),
         (clearance_kernels, "clearance_min_cuda", "clearance_min",
          clearance_kernels.clearance_min_plain),
+        (pair_kernels, "max_dim_cuda", "max_dim", pair_kernels.max_dim_flat_plain),
     ]
 
 
@@ -612,6 +628,69 @@ def clearance_cases(dtype, device, large: bool = True) -> list[tuple[str, tuple]
     return cases
 
 
+def max_dim_cases(dtype, device) -> list[tuple[str, tuple]]:
+    """The adversarial frames of ``max_dim`` in ``dtype``, each case
+    (coords, vdw, mask) of one or more frames: equal maxima in two tiles
+    of 128, the first row-major one in the later tile, and in one tile; a
+    pair whose two orders round apart, the larger sum the lower
+    triangle's; every atom masked; valid sums below -1e30 (the first
+    -1e30 entry wins: (1, 0), or a masked atom of row 0); a NaN coordinate
+    of a valid atom and of a masked one; N = 1; N = 301, padded atoms
+    parked at 1e6."""
+    np_t = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(424)
+
+    def f(coords, vdw, mask):
+        return (
+            torch.tensor(np.asarray(coords, dtype=np_t), device=device),
+            torch.tensor(np.asarray(vdw, dtype=np_t), device=device),
+            torch.tensor(np.asarray(mask, dtype=bool), device=device),
+        )
+
+    # ties: (100, 290) in tile (0, 2) and (101, 150) in tile (0, 1), then
+    # (3, 7) and (5, 6) in one tile; each pair 20 Å apart with vdW 1.5,
+    # every other atom within 4 Å of the origin
+    ties = rng.uniform(-2.3, 2.3, (2, 300, 3))
+    vdw = rng.uniform(1.2, 1.6, (2, 300))
+    for frame, pairs in enumerate((((100, 290), (101, 150)), ((3, 7), (5, 6)))):
+        for axis, (i, j) in enumerate(pairs):
+            ties[frame, i], ties[frame, j] = 0.0, 0.0
+            ties[frame, i, axis], ties[frame, j, axis] = -10.0, 10.0
+            vdw[frame, [i, j]] = 1.5
+    # two orders: atoms 5 and 200 of 256, x apart with vdW a and b, where
+    # (x + b) + a > (x + a) + b; the others within 1 Å of their midpoint
+    x = np_t(10.3)
+    a, b = (np_t(v) for v in rng.uniform(1.0, 2.0, 2))
+    while (x + a) + b == (x + b) + a:
+        a, b = (np_t(v) for v in rng.uniform(1.0, 2.0, 2))
+    if (x + a) + b > (x + b) + a:
+        a, b = b, a
+    orders = rng.uniform(-0.55, 0.55, (256, 3)) + [x / 2, 0.0, 0.0]
+    orders_vdw = rng.uniform(1.0, 2.0, 256)
+    orders[5], orders[200] = 0.0, [x, 0.0, 0.0]
+    orders_vdw[5], orders_vdw[200] = a, b
+    small = rng.normal(size=(2, 8, 3)) * 3
+    low_mask = np.ones((2, 8), dtype=bool)
+    low_mask[1, 6:] = False
+    nan = rng.normal(size=(2, 40, 3)) * 6
+    nan_mask = np.ones((2, 40), dtype=bool)
+    nan[0, 3, 1] = np.nan
+    nan[1, 39, 0], nan_mask[1, 39] = np.nan, False
+    padded = np.full((2, 301, 3), 1.0e6)
+    padded[:, :290] = rng.normal(size=(2, 290, 3)) * 6
+    padded_vdw = np.zeros((2, 301))
+    padded_vdw[:, :290] = rng.uniform(1.2, 2.0, (2, 290))
+    return [
+        ("ties", f(ties, vdw, np.ones((2, 300)))),
+        ("two orders", f(orders[None], orders_vdw[None], np.ones((1, 256)))),
+        ("all masked", f(rng.normal(size=(2, 24, 3)), np.ones((2, 24)), np.zeros((2, 24)))),
+        ("below -1e30", f(small, np.full((2, 8), -6.0e29), low_mask)),
+        ("NaN coordinate", f(nan, np.full((2, 40), 1.5), nan_mask)),
+        ("N=1", f(rng.normal(size=(3, 1, 3)), [[1.5], [1.7], [0.0]], [[True], [True], [False]])),
+        ("N=301 padded", f(padded, padded_vdw, np.broadcast_to(np.arange(301) < 290, (2, 301)))),
+    ]
+
+
 def time_ms(fn) -> float:
     """Warm median of one call, CUDA events; 3 to 25 repetitions."""
     fn()
@@ -675,7 +754,7 @@ def device_ms(fn) -> float:
 PLAIN_LANES = {
     "ray_exit": (1, 128), "path_sweep": (2, 128), "fine_path": (2, 128),
     "dbscan": (0, 128), "lbfgsb_stable": (0, 1 << 20), "nm_xy": (0, 1024),
-    "clearance_min": (0, 8192),
+    "clearance_min": (0, 8192), "max_dim": (0, 1 << 20),
 }
 
 
@@ -846,6 +925,24 @@ def compare_clearance(label, args, kwargs, dtype):
     return err
 
 
+def compare_max_dim(label, args, kwargs, dtype):
+    """Equal to the plain version, to the bit (NaN where it is NaN), the
+    atoms too: the same arithmetic op by op and torch's argmax order.
+    Returns the largest difference over the values that are not NaN (0)."""
+    from pywindow_torch.ops import pair_kernels
+
+    coords, vdw, mask, atoms = _as(args, dtype)
+    got = pair_kernels.max_dim_cuda(coords, vdw, mask, atoms)
+    ref = plain_call("max_dim", pair_kernels.max_dim_flat_plain, coords, vdw, mask, atoms)
+    torch.cuda.synchronize()
+    both = ~(torch.isnan(got[0]) | torch.isnan(ref[0]))
+    err = float((got[0] - ref[0])[both].abs().max()) if bool(both.any()) else 0.0
+    form = "atoms" if atoms else "value"
+    for name, g, r in zip(("value", "atom_1", "atom_2"), got, ref):
+        check(same_values(g, r), f"max_dim {form} {label} {dtype}: {name} differs (value by {err})")
+    return err
+
+
 def cdist_amin(probes, coords, vdw):
     """The two-call library yardstick of clearance_min (the port never
     calls it)."""
@@ -860,6 +957,7 @@ COMPARE = {
     "nm_xy": (compare_nm, (torch.float64,)),
     "fine_path": (compare_fine_path, (torch.float64, torch.float32)),
     "clearance_min": (compare_clearance, (torch.float64, torch.float32)),
+    "max_dim": (compare_max_dim, (torch.float64, torch.float32)),
 }
 
 
@@ -927,6 +1025,11 @@ def operations(key, args, kwargs, out, every_lane) -> int:
         return DBSCAN_BOX_OPS * boxes + DBSCAN_PAIR_OPS * pairs
     if key in ("lbfgsb_stable", "nm_xy"):
         return optimiser_work(key, args, kwargs, out, every_lane)[0]
+    if key == "max_dim":
+        # the valid atoms' unordered pairs, self included, of each frame
+        valid = args[2].sum(1).to(torch.int64)
+        pairs = int((valid * (valid + 1) // 2).sum())
+        return (MAX_DIM_PAIR_OPS if args[3] else MAX_DIM_VALUE_PAIR_OPS) * pairs
     if key == "clearance_min":
         if every_lane:
             return PROBE_OPS * args[0].shape[0] * args[1].shape[0]
@@ -1336,6 +1439,66 @@ def optimiser_rows(key, kernel, label, args, kwargs, out, ms) -> None:
         )
 
 
+#: the sweep chunks of the benchmark's two sweep cells, for max_dim's
+#: timings and the packed-row check: (label, frames); CC3 at
+#: batch_size=4,320, the 424-atom MIBQAR at 1,200
+MAX_DIM_CHUNKS = (("CC3 chunk", 4320), ("MIBQAR chunk", 1200))
+
+
+def max_dim_chunk(label: str, frames: int) -> tuple:
+    """(mols, sizes) of a sweep chunk on the card, sized as
+    ``dispatch_batch`` sizes a batch: CC3, the 20 frames of the DL_POLY
+    fixture (OPLS, he as H) cycled; MIBQAR, ``tests/data/MIBQAR.pdb`` with
+    a seeded Gaussian displacement of 0.1 Å per atom and axis a frame
+    (the thermal stand-in of the benchmark's MIBQAR cell)."""
+    import pywindow_torch as pt
+    from pywindow_torch.config import DEFAULT_CONFIG
+    from pywindow_torch.ops.analysis import batch_sizes, max_dim_bound, max_dim_host
+    from pywindow_torch.ops.encoding import encode_batch
+
+    if label.startswith("CC3"):
+        fixture = pt.DLPOLY(HISTORY).get_frames(swap_atoms={"he": "H"}, forcefield="OPLS")
+        systems = [(m.system["elements"], m.system["coordinates"]) for m in fixture.values()]
+        systems = [systems[i % len(systems)] for i in range(frames)]
+    else:
+        elements, coords = load_pdb_atoms(DATA / "MIBQAR.pdb")
+        rng = np.random.default_rng(424)
+        systems = [(elements, coords + rng.normal(scale=0.1, size=coords.shape)) for _ in range(frames)]
+    maxd = max(max_dim_host(e, c) for e, c in systems[:20])
+    largest = max(max_dim_bound(e, c) for e, c in systems[:20])
+    return encode_batch(systems, device=DEVICE), batch_sizes(maxd, largest, DEFAULT_CONFIG)
+
+
+def phase_max_dim_rows(chunks: dict) -> None:
+    """The device pipeline on each sweep chunk of :data:`MAX_DIM_CHUNKS`
+    through the max_dim kernel and through its plain version on the card
+    (the eager all-pairs passes): packed rows equal bit for bit (NaN in
+    the same places), each call's event ms printed."""
+    from pywindow_torch.config import DEFAULT_CONFIG
+    from pywindow_torch.ops import analysis, pair_kernels
+
+    kernel_fn = pair_kernels.max_dim_cuda
+    for label, (mols, sizes) in chunks.items():
+        def step():
+            return analysis.run_pipeline(mols, sizes, DEFAULT_CONFIG)
+
+        got = step()
+        check(same_values(step(), got), f"max_dim {label}: the pipeline's rows vary from call to call")
+        kernel_ms = time_ms(step)
+        try:
+            pair_kernels.max_dim_cuda = pair_kernels.max_dim_flat_plain
+            ref = step()
+            plain_ms = time_ms(step)
+        finally:
+            pair_kernels.max_dim_cuda = kernel_fn
+        torch.cuda.synchronize()
+        check(same_values(got, ref), f"max_dim {label}: packed rows differ from the plain passes'")
+        print(
+            f"  max_dim {label} {tuple(mols.coords.shape)}: packed rows equal the plain passes' "
+            f"bit for bit; pipeline call {kernel_ms:.2f} ms (events) against {plain_ms:.2f} ms"
+        )
+
+
 def timed_calls(key, calls) -> list:
     """(label, args, kwargs) of the recorded calls that phase 3 times: the
     first of each main-path label, PUDXES first (the record's row); for
@@ -1351,13 +1514,26 @@ def timed_calls(key, calls) -> list:
         elif key == "ray_exit":
             for want, form in ((True, "full"), (False, "slim")):
                 timed += [(f"{label} {form}", a, k) for _, a, k in mine if a[4] == want][:1]
+        elif key == "max_dim":
+            for atoms, form in ((True, "atoms"), (False, "value")):
+                timed += [(f"{label} {form}", a, k) for _, a, k in mine if a[3] == atoms][:1]
         else:
             timed += mine[:1]
+    if key == "max_dim":
+        timed += [
+            (f"{label} {'atoms' if a[3] else 'value'}", a, k)
+            for label, a, k in calls if label in dict(MAX_DIM_CHUNKS)
+        ]
     return timed
 
 
 def phase_kernels() -> dict[str, dict]:
     seen = record_inputs()
+    chunks = {label: max_dim_chunk(label, frames) for label, frames in MAX_DIM_CHUNKS}
+    seen["max_dim"] += [
+        (label, (mols.coords, mols.vdw, mols.mask, atoms), {})
+        for label, (mols, _) in chunks.items() for atoms in (True, False)
+    ]
     fns = {key: (getattr(m, attr), plain) for m, attr, key, plain in wrappers()}
     record = {}
     for key, calls in seen.items():
@@ -1418,6 +1594,8 @@ def phase_kernels() -> dict[str, dict]:
             f"kernel {key}: {len(calls)} calls checked, "
             f"max abs err {worst:.3e} ({dtypes[-1]})"
         )
+        if key == "max_dim":
+            phase_max_dim_rows(chunks)
         ms, dev_ms, plain_ms, bound_ms, bound_by, library_ms = rows[0]
         record[key] = {
             "max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
@@ -1443,6 +1621,7 @@ def main_path(label: str, pipeline_calls: list, kernels: tuple = PIPELINE_KERNEL
         lbfgsb_kernels,
         nm_kernels,
         optim,
+        pair_kernels,
         windows,
     )
 
@@ -1485,7 +1664,8 @@ def main_path(label: str, pipeline_calls: list, kernels: tuple = PIPELINE_KERNEL
         _cuda.LAUNCHES.clear()
         yield
         torch.cuda.synchronize()
-        launches = {k: _cuda.LAUNCHES[k] for k in (*KERNELS, *clearance_kernels.HELPER_KERNELS)}
+        helpers = (*clearance_kernels.HELPER_KERNELS, *pair_kernels.HELPER_KERNELS)
+        launches = {k: _cuda.LAUNCHES[k] for k in (*KERNELS, *helpers)}
         print(f"{label}: launches {json.dumps(launches)}")
         for key in kernels:
             check(launches[key] > 0, f"{label}: {key} was not launched")
@@ -2261,11 +2441,12 @@ SURFACE_GOLD = {
     "PUDXES": {**GOLD["PUDXES"], "pore_opt": GOLD["PUDXES"]["pore"]},
     "REYMAL": {**GOLD["REYMAL"], "pore_opt": 13.75674},
 }
-#: kernel name substrings of the six pipeline kernels in a trace
+#: kernel name substrings of the seven pipeline kernels in a trace
 TRACE_NAMES = {
     "ray_exit": "ray_exit_kernel", "path_sweep": "path_sweep_kernel",
     "dbscan": "dbscan_kernel", "lbfgsb_stable": "lbfgsb_kernel",
     "nm_xy": "nm_xy_kernel", "fine_path": "fine_path_kernel",
+    "max_dim": "max_dim_pairs",
 }
 
 
@@ -2310,7 +2491,7 @@ CLI_RUNNER = (
 
 def run_cli(*args: str) -> dict:
     """Run the command line's ``args`` in a subprocess; check that it
-    launched the six pipeline kernels and return its launch counts."""
+    launched the seven pipeline kernels and return its launch counts."""
     proc = subprocess.run(
         [sys.executable, "-c", CLI_RUNNER, *args], cwd=ROOT, capture_output=True,
         text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -2450,7 +2631,7 @@ def phase_surface() -> None:
         check(not missing, f"trace: no kernel event of {missing}")
         print(
             f"surface trace: {files[0].name}, {len(kernels)} distinct kernels, "
-            "the six pipeline kernels among them"
+            "the seven pipeline kernels among them"
         )
 
 
@@ -2900,7 +3081,7 @@ def run_ranks(
 
 
 def check_ranks(label: str, reports: list[dict], ref: dict, world: int) -> float:
-    """Every rank: decoded only its own shard, launched the six pipeline
+    """Every rank: decoded only its own shard, launched the seven pipeline
     kernels, loaded no JAX, ran the same plan and holds all frames equal
     to ``ref`` bit for bit.  Returns the slowest rank's warm seconds."""
     from pywindow_torch.parallel.distributed import _shard_frames
@@ -2992,7 +3173,7 @@ def phase_bench() -> None:
     """Phase 13: ``python -m pywindow_torch bench`` in a subprocess at full
     size, on the card: exit code 0, its last line the compact headline
     (under 1,000 bytes), the line before it the full record, whose gate
-    passed and whose CC3 batch launched all six pipeline kernels."""
+    passed and whose CC3 batch launched all seven pipeline kernels."""
     torch.cuda.empty_cache()  # the bench sizes its batches by free memory
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -3047,6 +3228,7 @@ def main() -> None:
     with main_path("periodic trajectory", calls):
         periodic = phase_periodic_trajectory(calls)
     phase_periodic_serial(periodic)
+    from pywindow_torch.ops import pair_kernels
     from pywindow_torch.ops.clearance_kernels import HELPER_KERNELS
 
     with main_path("clearance grid", calls, kernels=("clearance_min",) + HELPER_KERNELS):
@@ -3066,8 +3248,11 @@ def main() -> None:
         path = "clearance grid" if key == "clearance_min" else "sweep"
         return main_path.launches[path][key]
 
-    # clearance_min's helper passes, launched once with each sweep launch
-    helpers = {"clearance_min": {k: main_path.launches["clearance grid"][k] for k in HELPER_KERNELS}}
+    # the helper passes, launched once with each launch of their kernel
+    helpers = {
+        "clearance_min": {k: main_path.launches["clearance grid"][k] for k in HELPER_KERNELS},
+        "max_dim": {k: main_path.launches["sweep"][k] for k in pair_kernels.HELPER_KERNELS},
+    }
 
     kernels = [
         {

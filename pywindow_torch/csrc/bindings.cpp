@@ -214,6 +214,36 @@ void clearance_min(const at::Tensor& probes, const at::Tensor& coords,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+template <typename T>
+void max_dim_t(const at::Tensor& coords, const at::Tensor& vdw,
+               const at::Tensor& mask, at::Tensor& part_v, at::Tensor& part_k,
+               at::Tensor& value, int64_t* atom1, int64_t* atom2) {
+  pw::max_dim(coords.data_ptr<T>(), vdw.data_ptr<T>(),
+              static_cast<const uint8_t*>(mask.data_ptr()), part_v.data_ptr<T>(),
+              part_k.data_ptr<int32_t>(), value.data_ptr<T>(), atom1, atom2,
+              dim(coords, 0), dim(coords, 1), current_stream(coords));
+}
+
+void max_dim(const at::Tensor& coords, const at::Tensor& vdw,
+             const at::Tensor& mask, at::Tensor part_v, at::Tensor part_k,
+             at::Tensor value, c10::optional<at::Tensor> atom1,
+             c10::optional<at::Tensor> atom2) {
+  const c10::cuda::CUDAGuard guard(coords.device());
+  const int64_t parts = coords.size(0) * pw::max_dim_tiles(dim(coords, 1));
+  TORCH_CHECK(part_v.numel() == parts && part_k.numel() == parts,
+              "max_dim: the partials need ", parts, " entries each");
+  int64_t* a1 = atom1.has_value() ? atom1->data_ptr<int64_t>() : nullptr;
+  int64_t* a2 = atom2.has_value() ? atom2->data_ptr<int64_t>() : nullptr;
+  TORCH_CHECK((a1 == nullptr) == (a2 == nullptr), "max_dim: both atoms or neither");
+  if (coords.scalar_type() == at::kDouble) {
+    max_dim_t<double>(coords, vdw, mask, part_v, part_k, value, a1, a2);
+  } else {
+    max_dim_t<float>(coords, vdw, mask, part_v, part_k, value, a1, a2);
+  }
+  // launch errors are sticky until read: one check covers the two launches
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -224,4 +254,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("lbfgsb_stable", &lbfgsb_stable, "stable L-BFGS-B per lane");
   m.def("nm_xy", &nm_xy, "window-xy brute grid + Nelder-Mead per lane");
   m.def("clearance_min", &clearance_min, "vdW clearance field of probes");
+  m.def("max_dim", &max_dim, "maximum vdW-corrected diameter per frame");
 }

@@ -128,4 +128,19 @@ void clearance_min(const double* probes, const double* coords,
                    const double* vdw, double* out, int Q, int N,
                    const ClearanceWork<double>& work, void* stream);
 
+// max_dim.cu: the maximum vdW-corrected diameter of B frames; coords
+// (B,N,3), vdw (B,N), mask (B,N) -> value (B,) and, when atom1 and atom2
+// are not null, the two atoms (B,) int64 of the upper-triangle argmax
+// (ties to the first row-major entry); with them null, the maximum over
+// the full matrix.  part_v, part_k: the per-tile partials, B *
+// max_dim_tiles(N) each.  Two launches: the pair tiles, then one thread a
+// frame over its tiles.  N <= 46,340 (flat indices are 32-bit).
+int max_dim_tiles(int N);
+void max_dim(const float* coords, const float* vdw, const uint8_t* mask,
+             float* part_v, int32_t* part_k, float* value, int64_t* atom1,
+             int64_t* atom2, int B, int N, void* stream);
+void max_dim(const double* coords, const double* vdw, const uint8_t* mask,
+             double* part_v, int32_t* part_k, double* value, int64_t* atom1,
+             int64_t* atom2, int B, int N, void* stream);
+
 }  // namespace pw

@@ -35,6 +35,7 @@ SOURCES = (
     "lbfgsb_stable.cu",
     "nm_xy.cu",
     "clearance_min.cu",
+    "max_dim.cu",
 )
 #: -fmad=false: no multiply-add contraction, so each kernel rounds
 #: exactly like its plain PyTorch version (which runs one op at a time).

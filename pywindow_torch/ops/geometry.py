@@ -148,33 +148,23 @@ def clearance_and_argmin(
 
 
 def max_dim(mol: MolArrays) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Maximum vdW-corrected diameter and the two atoms realising it.
+    """Maximum vdW-corrected diameter and the two atoms realising it:
+    the upper-triangle (diagonal included) argmax of ``dist(i,j) + vdw_i
+    + vdw_j``, row-major first maximum, as ``np.triu`` + ``argmax`` in
+    the reference (utilities.py:355-372).  The plain version on the CPU,
+    the ``max_dim`` kernel on the card
+    (:func:`pywindow_torch.ops.pair_kernels.max_dim`)."""
+    from pywindow_torch.ops import pair_kernels  # it imports this module
 
-    Upper-triangle (diagonal included) argmax of
-    ``dist(i,j) + vdw_i + vdw_j``, row-major first maximum, as ``np.triu``
-    + ``argmax`` in the reference (utilities.py:355-372).
-    """
-    d = pairwise_distances(mol.coords, mol.coords)
-    d = d + mol.vdw[..., :, None] + mol.vdw[..., None, :]
-    n = mol.coords.shape[-2]
-    idx = torch.arange(n, device=d.device)
-    valid = (
-        (idx[:, None] <= idx[None, :])
-        & mol.mask[..., :, None]
-        & mol.mask[..., None, :]
-    )
-    flat = torch.where(valid, d, -BIG).reshape(*d.shape[:-2], n * n)
-    best = flat.argmax(-1)
-    return best // n, best % n, flat.gather(-1, best[..., None])[..., 0]
+    return pair_kernels.max_dim(mol)
 
 
 def max_dim_value(mol: MolArrays) -> torch.Tensor:
-    """Maximum vdW-corrected diameter, value only (the full symmetric
-    matrix has the same maximum as its upper triangle)."""
-    d = pairwise_distances(mol.coords, mol.coords)
-    d = d + mol.vdw[..., :, None] + mol.vdw[..., None, :]
-    valid = mol.mask[..., :, None] & mol.mask[..., None, :]
-    return torch.where(valid, d, -BIG).amax((-2, -1))
+    """Maximum vdW-corrected diameter, value only, the maximum over the
+    full symmetric matrix (:func:`pywindow_torch.ops.pair_kernels.max_dim_value`)."""
+    from pywindow_torch.ops import pair_kernels
+
+    return pair_kernels.max_dim_value(mol)
 
 
 def pore_diameter(

@@ -10,7 +10,9 @@ Tolerances: ``ray_exit`` rounds like its plain version in float64
 (flags equal, distances within 1e-9 Å; float32 within 1e-4 Å, with a few
 grazing rays allowed to flip); ``path_sweep``, ``fine_path`` and
 ``dbscan`` equal their plain versions bit for bit in both dtypes, so
-does ``clearance_min`` (NaN where the plain version is NaN), and
+does ``clearance_min`` (NaN where the plain version is NaN), so does
+``max_dim`` in both forms, its atoms included (NaN where the plain
+version is NaN), and
 ``ray_exit`` equals, bit for bit,
 its own pair arithmetic over every atom (what the kernel computed before
 its cull), whatever order groups its rays; the optimiser kernels run
@@ -25,14 +27,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import pywindow_torch as pt
 from pywindow_torch.ops import (
     _cuda,
     clearance_kernels,
     cluster,
     cluster_kernels,
+    geometry,
     lbfgsb_kernels,
     nm_kernels,
+    pair_kernels,
     ray_kernels,
     rays,
 )
@@ -445,6 +450,85 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         clearance_kernels.clearance_min_cuda(x3, coords[0], vdw)
     with pytest.raises(ValueError, match="one CUDA device"):
         clearance_kernels.clearance_min_cuda(x3, coords[0].cpu(), vdw[0])
+    mask = torch.ones((2, 10), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        pair_kernels.max_dim_cuda(coords.float(), vdw, mask, True)
+    with pytest.raises(TypeError, match="bool"):
+        pair_kernels.max_dim_cuda(coords, vdw, mask.to(torch.uint8), True)
+    with pytest.raises(ValueError, match="shape"):
+        pair_kernels.max_dim_cuda(coords, vdw[:, :9].contiguous(), mask, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        pair_kernels.max_dim_cuda(coords.transpose(0, 1), vdw, mask, True)
+
+
+def _max_dim_frames(b, n, seed, dtype, device):
+    """B seeded frames of N slots: the last N // 16 parked at 1e6 with
+    vdW 0 and masked, and, with B > 1, frame 1 masked whole."""
+    rng = np.random.default_rng(seed)
+    valid = n - n // 16
+    coords = np.full((b, n, 3), 1.0e6)
+    coords[:, :valid] = rng.normal(size=(b, valid, 3)) * 6
+    vdw = np.zeros((b, n))
+    vdw[:, :valid] = rng.uniform(1.2, 2.0, (b, valid))
+    mask = np.broadcast_to(np.arange(n) < valid, (b, n)).copy()
+    if b > 1:
+        mask[1] = False
+    return (
+        torch.tensor(coords, dtype=dtype, device=device),
+        torch.tensor(vdw, dtype=dtype, device=device),
+        torch.tensor(mask, device=device),
+    )
+
+
+def _assert_max_dim_kernel_exact(coords, vdw, mask):
+    for atoms in (True, False):
+        before = (_cuda.LAUNCHES["max_dim"], _cuda.LAUNCHES["max_dim_reduce"])
+        got = pair_kernels.max_dim_cuda(coords, vdw, mask, atoms)
+        assert (_cuda.LAUNCHES["max_dim"], _cuda.LAUNCHES["max_dim_reduce"]) == (
+            before[0] + 1, before[1] + 1,
+        )
+        ref = pair_kernels.max_dim_flat_plain(coords, vdw, mask, atoms)
+        torch.cuda.synchronize()
+        assert len(got) == len(ref) == (3 if atoms else 1)
+        for g, r in zip(got, ref):
+            assert chip_smoke.same_values(g, r), atoms
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "b,n", [(1, 168), (96, 168), (4320, 168), (1200, 424), (3, 1), (5, 301)]
+)
+def test_max_dim_kernel_matches_plain(cuda, dtype, b, n):
+    """Both forms on the sweep chunks' shapes, a single molecule, N = 1
+    and an N that is no multiple of 8 or of the tile."""
+    _assert_max_dim_kernel_exact(*_max_dim_frames(b, n, b + n, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_max_dim_kernel_on_adversarial_frames(cuda, dtype):
+    """``chip_smoke.max_dim_cases``: ties across tiles and in one, the
+    two orders of the value form, all masked, sums below -1e30, NaN
+    coordinates, N = 1, N = 301 padded."""
+    for label, args in chip_smoke.max_dim_cases(dtype, cuda):
+        _assert_max_dim_kernel_exact(*args)
+
+
+def test_max_dim_entry_points_on_the_card(cuda):
+    """``geometry.max_dim`` and ``max_dim_value`` on the card launch the
+    kernel and keep the leading axes: one molecule without a frame axis,
+    and frames under two leading axes."""
+    coords, vdw, mask = _max_dim_frames(6, 168, 9, torch.float32, cuda)
+    for shape in ((168,), (2, 3, 168)):
+        sel = slice(0, 1) if len(shape) == 1 else slice(None)
+        mol = MolArrays(*(t[sel].reshape(*shape, *t.shape[2:]) for t in (coords, vdw, vdw, vdw, mask)))
+        before = _cuda.LAUNCHES["max_dim"]
+        got = geometry.max_dim(mol)
+        value = geometry.max_dim_value(mol)
+        assert _cuda.LAUNCHES["max_dim"] == before + 2
+        ref = pair_kernels.max_dim_plain(mol)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert torch.equal(value, pair_kernels.max_dim_value_plain(mol))
+        assert value.shape == shape[:-1]
 
 
 def test_full_analysis_on_the_card_matches_cpu_float32(cuda, monkeypatch):
@@ -455,7 +539,7 @@ def test_full_analysis_on_the_card_matches_cpu_float32(cuda, monkeypatch):
     mol = pt.MolecularSystem.load_file(path).system_to_molecule()
     _cuda.LAUNCHES.clear()
     gpu = mol.full_analysis()  # the card is the default device
-    for key in ("ray_exit", "path_sweep", "dbscan", "fine_path", "lbfgsb_stable", "nm_xy"):
+    for key in ("ray_exit", "path_sweep", "dbscan", "fine_path", "lbfgsb_stable", "nm_xy", "max_dim"):
         assert _cuda.LAUNCHES[key] > 0, key
     monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
     cpu = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis(device="cpu")
@@ -468,7 +552,8 @@ def test_full_analysis_on_the_card_matches_cpu_float32(cuda, monkeypatch):
 
 def test_batched_launches_do_not_depend_on_batch_size(cuda):
     """analyze_batch runs each kernel the same number of times for 2
-    frames as for 9, and every frame equals its own B = 1 run."""
+    frames as for 9 (max_dim three times a pipeline call, with its
+    helper pass), and every frame equals its own B = 1 run."""
     from pywindow_torch.parallel import batch
 
     elements, coords = _pudxes()
@@ -481,6 +566,8 @@ def test_batched_launches_do_not_depend_on_batch_size(cuda):
         res = batch.collect_batch(handle)
         counts.append(dict(_cuda.LAUNCHES))
     assert counts[0] == counts[1]
+    assert counts[0]["max_dim"] == counts[1]["max_dim"] == counts[0]["max_dim_reduce"]
+    assert counts[0]["max_dim"] == 3 * counts[0]["path_sweep"] > 0
     one = batch.collect_batch(
         batch.dispatch_batch([(elements, coords)], reference_max_diameter=22.179369990077188)
     )[0]

@@ -21,6 +21,7 @@ from pywindow_torch.ops import (
     cluster,
     lbfgsb_kernels,
     nm_kernels,
+    pair_kernels,
     ray_kernels,
     windows,
 )
@@ -161,6 +162,7 @@ def _fake_kernels(monkeypatch):
         (lbfgsb_kernels, "lbfgsb_stable_flat_cuda", "lbfgsb_stable",
          lbfgsb_kernels.lbfgsb_stable_flat_plain),
         (nm_kernels, "nm_xy_flat_cuda", "nm_xy", nm_kernels.nm_xy_flat_plain),
+        (pair_kernels, "max_dim_cuda", "max_dim", pair_kernels.max_dim_flat_plain),
     ):
         monkeypatch.setattr(module, attr, counted(key, plain))
     monkeypatch.setattr(
@@ -179,8 +181,9 @@ def test_stable_stages_route_through_the_kernel_wrappers(monkeypatch):
     """With the card's configuration (float32 pipeline, stable
     optimisers) every stage of one molecule goes through a kernel
     wrapper: pore centre and window z through lbfgsb_stable, window xy
-    through nm_xy, the fine re-sampling through fine_path, and the
-    results equal the plain run's."""
+    through nm_xy, the fine re-sampling through fine_path, the maximum
+    diameter and both sampling radii through max_dim, and the results
+    equal the plain run's."""
     monkeypatch.setenv("PYWINDOW_TORCH_FORCE_F32", "1")
     path = DATA / "BATVUP.xyz"
     plain = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis(device="cpu")
@@ -189,7 +192,7 @@ def test_stable_stages_route_through_the_kernel_wrappers(monkeypatch):
     routed = pt.MolecularSystem.load_file(path).system_to_molecule().full_analysis(device="cpu")
     assert dict(_cuda.LAUNCHES) == {
         "ray_exit": 2, "path_sweep": 1, "dbscan": 1, "fine_path": 1,
-        "lbfgsb_stable": 2, "nm_xy": 1,
+        "lbfgsb_stable": 2, "nm_xy": 1, "max_dim": 3,
     }
     np.testing.assert_array_equal(
         routed["windows"]["diameters"], plain["windows"]["diameters"]
